@@ -1,0 +1,267 @@
+"""Model zoo registry (port of ``deepspeed_tpu/models/registry.py``): the
+families are ``TransformerConfig`` presets; they differ in config, not code.
+
+Size presets follow the published architectures (GPT-2 paper table 2; OPT
+paper table 1; BLOOM config; LLaMA paper table 2). Presets whose features
+are not ported yet (MoE, banded local attention, encoders) raise when built.
+"""
+
+from .transformer import CausalLM, TransformerConfig
+from ..utils import not_ported
+
+
+def gpt2_config(size="small", **overrides):
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=2, d_ff=512, max_seq_len=256),
+        "small": dict(n_layers=12, d_model=768, n_heads=12, d_ff=3072),
+        "medium": dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096),
+        "large": dict(n_layers=36, d_model=1280, n_heads=20, d_ff=5120),
+        "xl": dict(n_layers=48, d_model=1600, n_heads=25, d_ff=6400),
+    }
+    base = dict(
+        vocab_size=50257, max_seq_len=1024, activation="gelu_new", norm="layernorm",
+        position_embedding="learned", tie_embeddings=True, use_bias=True, prenorm=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def opt_config(size="125m", **overrides):
+    presets = {
+        "125m": dict(n_layers=12, d_model=768, n_heads=12, d_ff=3072),
+        "350m": dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096),
+        "1.3b": dict(n_layers=24, d_model=2048, n_heads=32, d_ff=8192),
+        "2.7b": dict(n_layers=32, d_model=2560, n_heads=32, d_ff=10240),
+        "6.7b": dict(n_layers=32, d_model=4096, n_heads=32, d_ff=16384),
+        "13b": dict(n_layers=40, d_model=5120, n_heads=40, d_ff=20480),
+        "30b": dict(n_layers=48, d_model=7168, n_heads=56, d_ff=28672),
+    }
+    base = dict(
+        vocab_size=50272, max_seq_len=2048, activation="relu", norm="layernorm",
+        position_embedding="learned", tie_embeddings=True, use_bias=True, prenorm=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def bloom_config(size="560m", **overrides):
+    presets = {
+        "560m": dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096),
+        "1.7b": dict(n_layers=24, d_model=2048, n_heads=16, d_ff=8192),
+        "3b": dict(n_layers=30, d_model=2560, n_heads=32, d_ff=10240),
+        "7b": dict(n_layers=30, d_model=4096, n_heads=32, d_ff=16384),
+    }
+    base = dict(
+        vocab_size=250880, max_seq_len=2048, activation="gelu", norm="layernorm",
+        position_embedding="alibi", tie_embeddings=True, use_bias=True, prenorm=True,
+        embed_layernorm=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def llama_config(size="7b", **overrides):
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=352,
+                     max_seq_len=256, vocab_size=1024),
+        "7b": dict(n_layers=32, d_model=4096, n_heads=32, d_ff=11008),
+        "13b": dict(n_layers=40, d_model=5120, n_heads=40, d_ff=13824),
+    }
+    base = dict(
+        vocab_size=32000, max_seq_len=2048, activation="swiglu", norm="rmsnorm",
+        position_embedding="rope", tie_embeddings=False, use_bias=False, prenorm=True,
+        layernorm_eps=1e-6,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def mistral_config(size="7b", **overrides):
+    """LLaMA-shaped with GQA + 32k rope base (Mistral paper)."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                     d_ff=352, max_seq_len=256, vocab_size=1024),
+        "7b": dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+                   d_ff=14336, max_seq_len=32768),
+    }
+    base = dict(
+        vocab_size=32000, activation="swiglu", norm="rmsnorm",
+        position_embedding="rope", rope_base=10000.0, tie_embeddings=False,
+        use_bias=False, prenorm=True, layernorm_eps=1e-5,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def qwen2_config(size="7b", **overrides):
+    """LLaMA-shaped with GQA and attention bias on q/k/v only (o and the MLP
+    stay unbiased) — mirrors module_inject/hf.py's qwen2 mapping so a
+    from-scratch model and an imported checkpoint share one architecture."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                     d_ff=352, max_seq_len=256, vocab_size=1024),
+        "7b": dict(n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4,
+                   d_ff=18944, max_seq_len=32768, vocab_size=152064),
+    }
+    base = dict(
+        vocab_size=151936, activation="swiglu", norm="rmsnorm",
+        position_embedding="rope", rope_base=1000000.0, tie_embeddings=False,
+        use_bias=True, mlp_bias=False, prenorm=True, layernorm_eps=1e-6,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def gptj_config(size="6b", **overrides):
+    """Parallel attn+mlp, shared LN, partial rotary, biased untied head."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, d_ff=512,
+                     max_seq_len=256, vocab_size=1024, rotary_dim=16),
+        "6b": dict(n_layers=28, d_model=4096, n_heads=16, d_ff=16384,
+                   rotary_dim=64),
+    }
+    base = dict(
+        vocab_size=50400, max_seq_len=2048, activation="gelu_new",
+        norm="layernorm", position_embedding="rope", rotary_interleaved=True,
+        tie_embeddings=False, head_bias=True, use_bias=False, mlp_bias=True,
+        prenorm=True, parallel_attn_mlp=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def neox_config(size="20b", **overrides):
+    """GPT-NeoX: parallel residual with separate norms, partial rotary."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, d_ff=512,
+                     max_seq_len=256, vocab_size=1024, rotary_dim=8),
+        "20b": dict(n_layers=44, d_model=6144, n_heads=64, d_ff=24576,
+                    rotary_dim=24),
+    }
+    base = dict(
+        vocab_size=50432, max_seq_len=2048, activation="gelu_exact",
+        norm="layernorm", position_embedding="rope", tie_embeddings=False,
+        use_bias=True, prenorm=True, parallel_attn_mlp=True,
+        parallel_norm_split=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def falcon_config(size="7b", **overrides):
+    """Falcon-7b geometry: parallel attn, one shared LN, multi-query, rope."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, d_ff=512,
+                     max_seq_len=256, vocab_size=1024),
+        "7b": dict(n_layers=32, d_model=4544, n_heads=71, d_ff=18176),
+    }
+    base = dict(
+        vocab_size=65024, max_seq_len=2048, activation="gelu_exact",
+        norm="layernorm", position_embedding="rope", n_kv_heads=1,
+        tie_embeddings=True, use_bias=False, prenorm=True,
+        parallel_attn_mlp=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def gpt_neo_config(size="1.3b", **overrides):
+    """GPT-Neo: GPT-2-shaped with alternating banded local attention and
+    UNSCALED attention logits."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=4, d_ff=512,
+                     max_seq_len=256, vocab_size=1024,
+                     local_attention_window=64),
+        "1.3b": dict(n_layers=24, d_model=2048, n_heads=16, d_ff=8192),
+        "2.7b": dict(n_layers=32, d_model=2560, n_heads=20, d_ff=10240),
+    }
+    base = dict(
+        vocab_size=50257, max_seq_len=2048, activation="gelu_new",
+        norm="layernorm", position_embedding="learned", tie_embeddings=True,
+        use_bias=True, mlp_bias=True, prenorm=True,
+        local_attention_window=256, attention_layers=("global", "local"),
+        attn_scale=1.0,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def gpt2_moe_config(size="tiny", **overrides):
+    """PR-MoE presets over the GPT-2 backbone (reference MoE tutorial
+    configuration: GPT-style dense backbone + MoE FFNs with residual experts,
+    ``moe/layer.py:16`` use_residual + noisy top-1 gating)."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=2, d_ff=512,
+                     max_seq_len=256, n_experts=4),
+        "small": dict(n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+                      n_experts=8),
+        "medium": dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096,
+                       n_experts=16),
+    }
+    base = dict(
+        vocab_size=50257, max_seq_len=1024, activation="gelu_new",
+        norm="layernorm", position_embedding="learned", tie_embeddings=True,
+        use_bias=True, prenorm=True,
+        moe_top_k=1, moe_use_residual=True, moe_use_rts=True,
+        moe_noisy_gate_policy="rsample",
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def bert_config(size="base", **overrides):
+    """Encoder presets (BERT paper table 1 geometry): post-norm, bidirectional,
+    learned positions + segment embeddings, gelu, embed LN."""
+    presets = {
+        "tiny": dict(n_layers=2, d_model=128, n_heads=2, d_ff=512, max_seq_len=256),
+        "base": dict(n_layers=12, d_model=768, n_heads=12, d_ff=3072),
+        "large": dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096),
+    }
+    base = dict(
+        vocab_size=30528,  # wordpiece 30522 padded to a multiple of 64
+        max_seq_len=512, activation="gelu_exact", norm="layernorm",
+        position_embedding="learned", tie_embeddings=True, use_bias=True,
+        prenorm=False, causal=False, embed_layernorm=True, type_vocab_size=2,
+        final_layernorm=False,  # post-norm blocks end with LN; BERT has no ln_f
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+MODEL_CONFIGS = {
+    "gpt2": gpt2_config,
+    "opt": opt_config,
+    "bloom": bloom_config,
+    "llama": llama_config,
+    "mistral": mistral_config,
+    "qwen2": qwen2_config,
+    "gptj": gptj_config,
+    "gpt_neox": neox_config,
+    "gpt_neo": gpt_neo_config,
+    "falcon": falcon_config,
+    "bert": bert_config,
+    "gpt2_moe": gpt2_moe_config,
+}
+
+
+def get_model(family, size=None, **overrides):
+    """Build a model by family name, e.g. get_model('gpt2', 'medium')."""
+    if family not in MODEL_CONFIGS:
+        raise ValueError(f"Unknown model family '{family}'. Available: {sorted(MODEL_CONFIGS)}")
+    kwargs = {} if size is None else {"size": size}
+    cfg = MODEL_CONFIGS[family](**kwargs, **overrides)
+    if not cfg.causal:
+        raise not_ported("encoder models (MaskedLM)", "A.9")
+    return CausalLM(cfg)
