@@ -8,14 +8,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
   1. build every kernel from ``deepspeed_tpu_torch/csrc`` (one nvcc per source,
      all started together);
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes and a few more, with its time, the plain version's time,
+     paths' shapes and a few more, with its time, the plain version's time,
      the least time the card could take (the bound) and one PyTorch library
      call computing the same function as a yardstick (never used by the port);
   3. the card against the CPU port: Llama-7B width with 2 layers in fp32, the
-     same seeded weights on both; prefill logits and 8 greedy tokens;
-  4. the main path: ``init_inference`` on full Llama-7B (32 layers, bf16,
+     same seeded weights on both; prefill logits and 8 greedy tokens, then
+     ``serve()`` of a few staggered requests: the card's ``fused`` streams
+     against the CPU port's ``gather`` streams and the card's ``generate()``;
+  4. the generate path: ``init_inference`` on full Llama-7B (32 layers, bf16,
      random weights from a seed) answering requests through ``generate()``,
-     with every kernel's launch count read around it.
+     with every kernel's launch count read around it;
+  5. the serving path: the same engine's ``serve()`` (8 slots, a paged KV
+     pool of 2048-token windows, the ``fused`` decode backend) answering 16
+     staggered requests on the wall clock, twice, with the launch counts
+     read around the first run, a fused-against-gather decode step and a
+     profile of a decode stretch.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -39,12 +46,25 @@ H100_BYTES = 3.35e12       # HBM3 bytes/s
 ATOL_16 = 1e-5
 TOL_FP32 = (2e-5, 2e-5)
 
-# phase 4's requests: (name, (batch, prompt length)), max_new_tokens each
-MAIN_CONFIG = {"dtype": "bfloat16", "max_tokens": 2048, "seed": 0}
+# the engine config of phases 4 and 5 (its serving block is phase 5's slot
+# pool); phase 4's requests: (name, (batch, prompt length)), MAX_NEW tokens each
+MAIN_CONFIG = {"dtype": "bfloat16", "max_tokens": 2048, "seed": 0,
+               "serving": {"n_slots": 8, "max_len": 2048,
+                           "kv_pool": {"enabled": True, "block_size": 16,
+                                       "attention_backend": "fused", "prefix_cache": True}}}
 MAX_NEW = 64
 REQUESTS = (("single-57", (1, 57)), ("single-300", (1, 300)), ("single-900", (1, 900)),
             ("single-1700", (1, 1700)), ("batch4x512", (4, 512)))
 SAMPLED = ((1, 300), 16)  # a sampled request: (batch, prompt length), new tokens
+
+# phase 5's traffic: SERVE_N requests SERVE_GAP s apart, prompt lengths
+# cycling SERVE_PROMPTS, MAX_NEW tokens each; request SHARED[1] repeats the
+# first SHARED_PREFIX tokens of request SHARED[0]; request SAMPLED_REQ samples
+SERVE_PROMPTS = (57, 300, 900, 1700)
+SERVE_N, SERVE_GAP = 16, 0.05
+SHARED, SHARED_PREFIX = (2, 6), 512
+PROFILED_STEPS = 16        # decode steps of run 2 under the profiler
+SAMPLED_REQ = (5, {"temperature": 0.8, "top_k": 40, "seed": 7})
 
 
 def log(msg):
@@ -79,15 +99,41 @@ def attention_flops(b, s_q, s_kv, h, d, causal):
 
 
 def main_path_prefill_shapes():
-    """The (batch, prompt bucket) of every prefill phase 4 runs, by the
-    engine's own bucket rule on its own config."""
+    """The (batch, prompt bucket) of every flash prefill phases 4 and 5 run,
+    by the engine's own bucket rules on its own config: ``generate()``
+    buckets against ``max_tokens - max_new_tokens``, serving against the
+    slot window ``serving.max_len``."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
 
     cfg = DeepSpeedInferenceConfig.from_dict(MAIN_CONFIG)
     reqs = [(shape, MAX_NEW) for _, shape in REQUESTS] + [SAMPLED]
-    return sorted({(b, bucket_prompt_len(cfg, n, cfg.max_tokens - new))
-                   for (b, n), new in reqs})
+    shapes = {(b, bucket_prompt_len(cfg, n, cfg.max_tokens - new)) for (b, n), new in reqs}
+    shapes |= {(1, bucket_prompt_len(cfg, n, cfg.serving.max_len)) for n in SERVE_PROMPTS}
+    return sorted(shapes)
+
+
+def serving_traffic(vocab):
+    """Phase 5's requests as dicts (``Request`` fields), from seed 0."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(SERVE_N):
+        prompt = rng.randint(0, vocab, SERVE_PROMPTS[i % len(SERVE_PROMPTS)])
+        if i == SHARED[1]:
+            prompt[:SHARED_PREFIX] = out[SHARED[0]]["prompt"][:SHARED_PREFIX]
+        req = {"prompt": prompt, "max_new_tokens": MAX_NEW, "arrival_time": i * SERVE_GAP}
+        if i == SAMPLED_REQ[0]:
+            req["sampling"] = dict(SAMPLED_REQ[1])
+        out.append(req)
+    return out
+
+
+def decode_cursors():
+    """The ragged cursors phase 5's decode reaches: each prompt length at
+    its first decode step and at its last."""
+    return [n for n in SERVE_PROMPTS] + [n + MAX_NEW - 2 for n in SERVE_PROMPTS]
 
 
 def phase_kernels(torch, F, main_shapes):
@@ -170,6 +216,125 @@ def phase_kernels(torch, F, main_shapes):
     return results
 
 
+def paged_inputs(torch, gen, s_dim, n_heads, kvh, dh, bs, nb_cols, cursors, dtype):
+    """A paged pool of ``s_dim * nb_cols + 1`` blocks whose garbage block 0
+    is poisoned with 1e4, each slot's blocks drawn without replacement for
+    [0, cursor) and every other column on the garbage block."""
+    n_blocks = s_dim * nb_cols + 1
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    kc, vc = rnd(n_blocks, bs, kvh, dh), rnd(n_blocks, bs, kvh, dh)
+    kc[0] = 1e4
+    vc[0] = 1e4
+    ids = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((s_dim, nb_cols), dtype=torch.int32, device="cuda")
+    for s, c in enumerate(cursors):
+        used = -(-c // bs)
+        table[s, :used] = ids[s * nb_cols:s * nb_cols + used].int()
+    pos = torch.tensor(cursors, dtype=torch.int32, device="cuda")
+    return (rnd(s_dim, n_heads, dh), rnd(s_dim, kvh, dh), rnd(s_dim, kvh, dh), kc, vc, table,
+            pos)
+
+
+def phase_paged_kernels(torch, F):
+    """``paged_flash_decode`` against its plain version at phase 5's decode
+    geometry (8 slots, Llama-7B heads, 16-token blocks, 2048-token windows,
+    the cursors phase 5 reaches) and a few more."""
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import (kernel_splits,
+                                                              paged_flash_decode,
+                                                              paged_flash_decode_reference,
+                                                              rounding_bound)
+
+    serving = MAIN_CONFIG["serving"]
+    s_dim, bs = serving["n_slots"], serving["kv_pool"]["block_size"]
+    nb_cols = serving["max_len"] // bs
+    cursors = decode_cursors()
+    main_splits = kernel_splits(s_dim, 32, nb_cols, "cuda")
+    results = []
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [("main", 32, 32, False, None), ("main-splits1", 32, 32, False, 1),
+                 ("main-splits4", 32, 32, False, 4), ("gqa-32/8", 32, 8, False, None),
+                 ("alibi", 32, 32, True, None)]
+        for name, n_heads, kvh, alibi, splits in cases:
+            args = paged_inputs(torch, gen, s_dim, n_heads, kvh, 128, bs, nb_cols, cursors, dtype)
+            q, k_new, v_new, kc, vc, table, pos = args
+            slopes = (0.5 ** torch.arange(1, n_heads + 1, dtype=torch.float32, device="cuda")
+                      if alibi else None)
+            used = splits or kernel_splits(s_dim, kvh, nb_cols, "cuda")
+            kern = lambda: paged_flash_decode(*args, alibi_slopes=slopes, kv_splits=used)
+            plain = lambda: paged_flash_decode_reference(*args, alibi_slopes=slopes,
+                                                          kv_splits=used)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            if dtype == torch.float32:
+                tol = f"{TOL_FP32[0]:g} + {TOL_FP32[1]:g}|plain|"
+                limit = TOL_FP32[0] + TOL_FP32[1] * ref.float().abs()
+            else:
+                tol = f"{ATOL_16:g} + rounding bound"
+                limit = ATOL_16 + rounding_bound(*args, ref, alibi_slopes=slopes)
+            limit_use = (diff / limit).max().item()
+            if not limit_use <= 1.0:
+                raise AssertionError(f"paged kernel {name} {dtype}: |kernel - plain| exceeds "
+                                     f"{tol} (max abs err {err}, {limit_use:.2f} of the limit)")
+            if not bool(torch.isfinite(out).all()) or out.float().abs().max().item() > 100:
+                raise AssertionError(f"paged kernel {name}: the garbage block leaked in")
+
+            # the yardstick: gather the dense view through the table, put the
+            # fresh row at the cursor, and one SDPA call with the cursor mask
+            # (the mask, and the alibi bias, are built outside the timing)
+            t_len = nb_cols * bs
+            rows = torch.arange(s_dim, device="cuda")
+            at = torch.arange(t_len, device="cuda")
+            mask = (at[None, :] <= pos.long()[:, None])[:, None, None, :]
+            if alibi:
+                dist = (at[None, :] - pos.long()[:, None]).float()
+                mask = torch.where(mask, slopes[None, :, None, None] * dist[:, None, None, :],
+                                   float("-inf")).to(dtype)
+
+            def lib():
+                kd = kc[table.long()].reshape(s_dim, t_len, kvh, 128)
+                vd = vc[table.long()].reshape(s_dim, t_len, kvh, 128)
+                kd[rows, pos.long()] = k_new
+                vd[rows, pos.long()] = v_new
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=kvh != n_heads)
+
+            lib_err = (lib()[:, :, 0].float() - ref.float()).abs().max().item()
+            kernel_ms = time_ms(kern, 20)
+            plain_ms = time_ms(plain, 5)
+            library_ms = time_ms(lib, 20)
+            # the bound: the valid K/V windows, q, the fresh rows, the out,
+            # the table and the cursors, each moved once at HBM rate; and
+            # 4 * n_heads * dh operations per attended position
+            attended = sum(cursors) + s_dim
+            n_bytes = (2 * sum(cursors) * kvh * 128 + 2 * s_dim * n_heads * 128
+                       + 2 * s_dim * kvh * 128) * q.element_size() + 4 * (table.numel() + s_dim)
+            flops = 4 * n_heads * 128 * attended
+            t_bytes = n_bytes / H100_BYTES
+            t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            r = dict(case=name, dtype=str(dtype).split(".")[1], slots=s_dim, n_heads=n_heads,
+                     kv_heads=kvh, head_dim=128, block_size=bs, window=t_len, cursors=cursors,
+                     splits=used, alibi=alibi, main_path=name == "main" and splits is None,
+                     max_abs_err=err, tolerance=tol, limit_use=limit_use,
+                     library_max_abs_err=lib_err, ms=kernel_ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=n_bytes,
+                     flops=flops, gb_per_s=n_bytes / kernel_ms / 1e6)
+            log(f"  paged {name:13s} {r['dtype']:8s} splits {used} err {err:.2e} "
+                f"({limit_use:.2f} of the limit)  kernel {kernel_ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  gather+sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({r['bound_by']})  {r['gb_per_s']:.0f} GB/s")
+            results.append(r)
+            del args, q, k_new, v_new, kc, vc, out, ref, diff, limit, mask
+    if not any(r["main_path"] and r["splits"] == main_splits for r in results):
+        raise AssertionError("the main path's decode geometry was not checked")
+    return results
+
+
 def phase_card_vs_cpu(torch):
     import numpy as np
 
@@ -204,6 +369,39 @@ def phase_card_vs_cpu(torch):
                              f"cpu {toks['cpu'][0, 100:].tolist()}")
     log(f"  prefill logits max abs err {err:.3e} (|logits| max {scale:.2f}); 8 greedy "
         f"tokens equal: {toks['card'][0, 100:].tolist()}")
+
+    # serve(): the card's fused backend against the CPU port's gather
+    # backend, 3 staggered greedy requests through 2 slots (virtual clock,
+    # so both sides run the same schedule), and against the card's generate()
+    from deepspeed_tpu_torch.config import ServingConfig
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+    from deepspeed_tpu_torch.serving import Request, ServingEngine, VirtualClock
+
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 32000, n) for n in (40, 100, 150)]
+    streams = {}
+    for name, eng, backend in (("card", card, "fused"), ("cpu", cpu, "gather")):
+        sv = ServingEngine(eng, serving_config=ServingConfig.from_dict(
+            {"n_slots": 2, "virtual_clock": True,
+             "kv_pool": {"enabled": True, "block_size": 16, "attention_backend": backend}}),
+            clock=VirtualClock())
+        before = LAUNCH_COUNTS["paged_flash_decode"]
+        reqs = [Request(prompt=p, max_new_tokens=8, arrival_time=float(i))
+                for i, p in enumerate(prompts)]
+        list(sv.serve(reqs))
+        launched = LAUNCH_COUNTS["paged_flash_decode"] - before
+        if sv.attn_backend != backend or (backend == "fused") != (launched > 0):
+            raise AssertionError(f"{name} serve ran backend {sv.attn_backend} with {launched} "
+                                 "paged kernel launches")
+        streams[name] = [r.tokens for r in reqs]
+        sv.destroy()
+    generated = [card.generate(p[None], max_new_tokens=8).cpu()[0, len(p):].tolist()
+                 for p in prompts]
+    if not streams["card"] == streams["cpu"] == generated:
+        raise AssertionError(f"serve streams differ: card fused {streams['card']}, cpu gather "
+                             f"{streams['cpu']}, card generate {generated}")
+    log(f"  serve(): card fused == CPU gather == card generate() on 3 staggered requests: "
+        f"{streams['card']}")
     card.destroy()
     cpu.destroy()
     return err
@@ -286,14 +484,218 @@ def phase_main_path(torch, checked_shapes):
     launches = dict(LAUNCH_COUNTS)
     if launches["flash_attention_fwd"] != n_layers * n_calls:
         raise AssertionError(f"flash launches {launches} != {n_layers} x {n_calls} calls")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
+    if launches["flash_attention_fwd"] == 0:
+        raise AssertionError("the flash kernel was never launched on the generate path")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  launches on the main path: {launches} over {n_calls} generate calls; "
+    log(f"  launches on the generate path: {launches} over {n_calls} generate calls; "
         f"peak device memory {peak:.2f} GiB")
-    eng.destroy()
-    return launches, requests, peak, profile
+    return eng, launches, requests, peak, profile
+
+
+def phase_serving(torch, eng, checked_shapes):
+    """Phase 5: ``serve()`` on the phase-4 engine (its config's serving
+    block: 8 slots, a paged pool of 2048-token windows, the fused backend)
+    under the wall clock. Run 1 serves the traffic and nothing else: its
+    launch counts, metrics and decode step times are the ones reported. Run 2
+    (a fresh slot pool) must repeat every stream; it also takes one
+    fused-against-gather decode step when all 8 slots are busy, and profiles
+    the first 16 decode steps after the last admission."""
+    from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
+    from deepspeed_tpu_torch.models.decoding import forward_with_paged_cache
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from deepspeed_tpu_torch.serving import Request, ServingEngine
+
+    cfg = eng.module.config
+    n_layers, vocab = cfg.n_layers, cfg.vocab_size
+    traffic = serving_traffic(vocab)
+    for spec in traffic:
+        bucket = bucket_prompt_len(eng.config, len(spec["prompt"]), eng.config.serving.max_len)
+        if (1, bucket) not in checked_shapes:
+            raise AssertionError(f"serving prefill shape {(1, bucket)} was not held against the "
+                                 f"plain version in phase 2 ({checked_shapes})")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(sv, label, on_decode, entry):
+        """Serve the traffic; returns the requests, the wall seconds and, per
+        decode step, (start, end, after the last admission)."""
+        steps = []
+        inner = sv._decode_once
+
+        def timed(events):
+            after = drained(sv)
+            on_decode(sv)
+            t = time.perf_counter()
+            inner(events)   # ends in the host read of the sampled tokens
+            steps.append((t, time.perf_counter(), after))
+
+        sv._decode_once = timed
+        reqs = [Request(**spec) for spec in traffic]
+        t = time.perf_counter()
+        events = list(entry(reqs))
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        for r in reqs:
+            if r.state.name != "FINISHED" or len(r.tokens) != MAX_NEW:
+                raise AssertionError(f"{label}: request {r.request_id} ended {r.state.name} "
+                                     f"with {len(r.tokens)} tokens")
+            if min(r.tokens) < 0 or max(r.tokens) >= vocab:
+                raise AssertionError(f"{label}: token outside the vocab")
+        if len(events) != SERVE_N * MAX_NEW:
+            raise AssertionError(f"{label}: {len(events)} events")
+        return reqs, wall, steps
+
+    def drained(sv):
+        return sv.metrics.submitted == SERVE_N and not sv.queue.depth and not sv._prefill_jobs
+
+    sv = eng.serving
+    if sv.attn_backend != "fused":
+        raise AssertionError(f"serving backend is {sv.attn_backend}, not fused")
+    reset_launch_counts()
+    reqs1, wall1, steps1 = run(sv, "run 1", lambda sv: None, eng.serve)
+    launches = dict(LAUNCH_COUNTS)
+    snap = sv.metrics.snapshot()
+    dispatches = sv.metrics.decode_dispatches
+    hits = snap["kv_pool"]["prefix_hit_requests"]
+    if snap["kv_pool"]["attention_backend"] != "fused" or hits < 1:
+        raise AssertionError(f"kv_pool {snap['kv_pool']}: not fused, or no prefix hit")
+    if launches["paged_flash_decode"] != n_layers * dispatches:
+        raise AssertionError(f"paged launches {launches['paged_flash_decode']} != {n_layers} x "
+                             f"{dispatches} decode steps")
+    if launches["flash_attention_fwd"] != n_layers * (SERVE_N - hits):
+        raise AssertionError(f"flash launches {launches['flash_attention_fwd']} != {n_layers} x "
+                             f"{SERVE_N - hits} full prefills")
+    if reqs1[SHARED[1]].prefix_saved_tokens != SHARED_PREFIX:
+        raise AssertionError(f"the shared prefix saved {reqs1[SHARED[1]].prefix_saved_tokens}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sv.destroy()
+
+    check, prof_box = {}, {}
+
+    def fused_vs_gather(sv):
+        """One decode step from the live pool state through both backends
+        (neither advances a cursor; both write only the rows at the
+        cursors, which the real step rewrites), outside the profiled stretch."""
+        if check or len(sv._slots) < sv.n_slots or "prof" in prof_box:
+            return
+        st, bs = sv._state, sv.pool_mgr.block_size
+        with torch.no_grad():
+            logits = {b: forward_with_paged_cache(
+                eng.module, eng.params, st["tok"][:, None], {"k": st["k"], "v": st["v"]},
+                st["table"], st["pos"], bs, attention_backend=b)[:, 0].float()
+                for b in ("fused", "gather")}
+        delta = (logits["fused"] - logits["gather"]).abs().max().item()
+        top2 = logits["gather"].topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * delta
+        same = logits["fused"].argmax(-1) == logits["gather"].argmax(-1)
+        if not bool(same[decided].all()):
+            raise AssertionError(f"fused and gather argmax differ on a slot whose top-2 gap "
+                                 f"exceeds 2 x max |dlogits| {delta}")
+        check.update(max_abs_dlogits=delta, slots_decided=int(decided.sum()),
+                     slots_same_argmax=int(same.sum()), slots=sv.n_slots,
+                     at_cursors=st["pos"].tolist())
+        log(f"  fused vs gather (run 2), one decode step at cursors {check['at_cursors']}: max "
+            f"|dlogits| {delta:.4f}; argmax equal on {check['slots_same_argmax']} of 8 slots, "
+            f"{check['slots_decided']} with a top-2 gap over 2x that")
+
+    def profile_stretch(sv2, steps=PROFILED_STEPS):
+        """Profile the first ``steps`` decode steps after the last admission."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if "prof" not in prof_box and drained(sv2):
+            prof_box["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+            prof_box["prof"].start()
+            prof_box["steps"] = 0
+        elif prof_box.get("steps") is not None:
+            prof_box["steps"] += 1
+            if prof_box["steps"] == steps:
+                torch.cuda.synchronize()
+                prof_box["prof"].stop()
+                prof_box["steps"] = None
+
+    def run2_hook(sv2):
+        fused_vs_gather(sv2)
+        profile_stretch(sv2)
+
+    sv2 = ServingEngine(eng)
+    reqs2, wall2, steps2 = run(sv2, "run 2", run2_hook, sv2.serve)
+    if prof_box.get("steps") is not None:
+        torch.cuda.synchronize()
+        prof_box["prof"].stop()
+    if not check:
+        raise AssertionError("all 8 slots were never busy at once: no fused-vs-gather check")
+    for a, b in zip(reqs1, reqs2):
+        if a.tokens != b.tokens:
+            raise AssertionError(f"request {a.request_id}: run 2 gave a different stream")
+    sv2.destroy()
+
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    step_ms = lambda steps, after=None: [(e - s) * 1e3 for s, e, a in steps
+                                         if after is None or a == after]
+    profile = stretch_profile(torch, prof_box.get("prof"), stretch_wall_ms(steps2),
+                              stretch_wall_ms(steps1))
+    out = {"requests": SERVE_N, "prompts": list(SERVE_PROMPTS), "new_tokens": MAX_NEW,
+           "arrival_gap_s": SERVE_GAP, "wall_s": [wall1, wall2],
+           "wall_s_note": "run 2 also takes the fused-vs-gather step and the profiled stretch",
+           "tokens_per_s": snap["tokens_per_s"], "ttft_ms": snap["ttft_ms"],
+           "tpot_ms": snap["tpot_ms"], "decode_steps": dispatches,
+           "decode_ms_per_step_mean": mean(step_ms(steps1)),
+           "decode_ms_per_step_after_last_admission": mean(step_ms(steps1, True)),
+           "prefix_hit_requests": hits, "kv_pool": snap["kv_pool"],
+           "launches": launches, "peak_gib": peak, "fused_vs_gather": check,
+           "profile": profile}
+    log(f"  run 1: {SERVE_N} requests in {wall1:.2f} s ({wall2:.2f} s for run 2); tokens/s "
+        f"{snap['tokens_per_s']}; TTFT ms p50/p99 {snap['ttft_ms']['p50']:.1f}/"
+        f"{snap['ttft_ms']['p99']:.1f}; TPOT ms p50/p99 {snap['tpot_ms']['p50']:.2f}/"
+        f"{snap['tpot_ms']['p99']:.2f}; {dispatches} decode steps at "
+        f"{out['decode_ms_per_step_mean']:.2f} ms mean; peak device memory {peak:.2f} GiB")
+    log(f"  launches on the serving path: {launches} ({n_layers} x {dispatches} decode steps, "
+        f"{n_layers} x {SERVE_N - hits} full prefills; {hits} prefix hit)")
+    return out
+
+
+def stretch_wall_ms(steps, n=PROFILED_STEPS):
+    """Wall ms from the start of the first to the end of the ``n``-th decode
+    step after the last admission (each step ends in a host read of its
+    tokens, so the device is done with it)."""
+    after = [(s, e) for s, e, a in steps if a][:n]
+    if len(after) < n:
+        raise AssertionError(f"only {len(after)} decode steps after the last admission")
+    return (after[-1][1] - after[0][0]) * 1e3
+
+
+def stretch_profile(torch, prof, wall_ms, run1_wall_ms):
+    """Device kernel time of run 2's profiled stretch (the first
+    ``PROFILED_STEPS`` decode steps after the last admission), by kernel
+    name, and the device's idle share of that stretch's own wall time. The
+    profiler's host cost lengthens that wall, so the idle share against run
+    1's unprofiled wall of the same stretch (the same steps of the same
+    traffic) is given beside it."""
+    from torch.autograd import DeviceType
+
+    if prof is None:
+        raise AssertionError("the decode stretch was never profiled")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        log("  profile: the trace shows no device time (not measured)")
+        return {"device_busy_ms": None}
+    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:10]
+    out = {"stretch": f"run 2, the first {PROFILED_STEPS} decode steps after the last admission",
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "run1_unprofiled_wall_ms": run1_wall_ms,
+           "device_idle_share_vs_run1_unprofiled": 1 - busy_ms / run1_wall_ms,
+           "top_kernels": [{"name": e.key[:100], "ms": e.device_time_total / 1e3,
+                            "count": e.count} for e in top]}
+    log(f"  profile: device busy {busy_ms:.1f} ms over the {PROFILED_STEPS} profiled decode steps "
+        f"of {wall_ms:.1f} ms wall (idle share {out['device_idle_share']:.3f}); the same "
+        f"steps of run 1 took {run1_wall_ms:.1f} ms unprofiled (idle share "
+        f"{out['device_idle_share_vs_run1_unprofiled']:.3f})")
+    for k in out["top_kernels"]:
+        log(f"    {k['ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
+    return out
 
 
 def profile_request(torch, eng, ids, wall_ms):
@@ -370,27 +772,40 @@ def main():
 
     log("phase 2: kernels against their plain versions")
     main_shapes = main_path_prefill_shapes()
-    log(f"  phase 4's prefill shapes (batch, bucket): {main_shapes}")
+    log(f"  phases 4 and 5's prefill shapes (batch, bucket): {main_shapes}")
     cases = phase_kernels(torch, F, main_shapes)
+    paged_cases = phase_paged_kernels(torch, F)
+    torch.cuda.empty_cache()
 
     log("phase 3: card against the CPU port (Llama-7B width, 2 layers, fp32)")
     parity_err = phase_card_vs_cpu(torch)
     torch.cuda.empty_cache()
 
-    log("phase 4: main path (init_inference + generate, Llama-7B, bf16)")
-    launches, requests, peak, profile = phase_main_path(torch, main_shapes)
+    log("phase 4: generate path (init_inference + generate, Llama-7B, bf16)")
+    eng, launches, requests, peak, profile = phase_main_path(torch, main_shapes)
 
-    # the headline is the longest prefill of phase 4; "cases" holds every shape
+    log("phase 5: serving path (serve(), 8 slots, paged pool, fused decode, Llama-7B, bf16)")
+    serving = phase_serving(torch, eng, main_shapes)
+    eng.destroy()
+    by_path = {"generate": launches, "serve": serving["launches"]}
+    for path, counts in by_path.items():
+        for name in (("flash_attention_fwd",) if path == "generate" else tuple(counts)):
+            if counts[name] == 0:
+                raise AssertionError(f"kernel {name} was never launched on the {path} path")
+
+    # the headline is the longest prefill of phases 4 and 5; "cases" holds every shape
     b_main, s_main = max(main_shapes, key=lambda bs: bs[1])
     main_case = next(c for c in cases
                      if c["case"] == f"main-b{b_main}-s{s_main}" and c["dtype"] == "bfloat16")
+    paged_main = next(c for c in paged_cases if c["main_path"] and c["dtype"] == "bfloat16")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:173",
         "also_replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:255",
-        "launches": launches["flash_attention_fwd"],
+        "launches": sum(c["flash_attention_fwd"] for c in by_path.values()),
+        "launches_by_path": {p: c["flash_attention_fwd"] for p, c in by_path.items()},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -398,13 +813,33 @@ def main():
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": f"b={b_main} s={s_main} h=32 d=128 causal bf16 (the longest prefill of "
-                 f"the main path)",
+                 f"the main paths)",
         "cases": cases,
+    }, {
+        "name": "paged_flash_decode",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/paged_flash_decode.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:289",
+        "launches": serving["launches"]["paged_flash_decode"],
+        "launches_by_path": {p: c["paged_flash_decode"] for p, c in by_path.items()},
+        "max_abs_err": paged_main["max_abs_err"],
+        "ms": paged_main["ms"],
+        "plain_ms": paged_main["plain_ms"],
+        "bound_ms": paged_main["bound_ms"],
+        "bound_by": paged_main["bound_by"],
+        "library_ms": paged_main["library_ms"],
+        "shape": f"{paged_main['slots']} slots, 32 heads, head_dim 128, blocks of "
+                 f"{paged_main['block_size']}, {paged_main['window']}-token windows, cursors "
+                 f"{paged_main['cursors']}, {paged_main['splits']} splits, bf16 (phase 5's "
+                 f"decode)",
+        "cases": paged_cases,
     }]
     log(f"summary: card {card_line}; build {build_s:.1f} s; card-vs-CPU logits err "
-        f"{parity_err:.3e}; peak {peak:.2f} GiB; total {time.perf_counter() - t_all:.1f} s")
+        f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
+        f"(serve); total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))
+    log(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ A second package beside the JAX one, written for an NVIDIA H100: plain
 tensor code is PyTorch, and every TPU kernel on a ported path is a kernel
 written by hand for Hopper (``csrc/``). It imports neither ``jax`` nor
 ``deepspeed_tpu``. The port goes slice by slice (ROADMAP.md queue A); this
-package currently serves ``init_inference(...).generate(...)`` for the
-dense decoder families.
+package currently serves ``init_inference(...).generate(...)`` and the
+continuous-batching ``init_inference(...).serve(...)`` (``serving/``) for
+the dense decoder families.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
 from .base import ConfigError, ConfigModel  # noqa: F401
+from .config import ChunkedPrefillConfig, KVPoolConfig, ServingConfig, SLOConfig  # noqa: F401

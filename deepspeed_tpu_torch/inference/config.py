@@ -9,6 +9,7 @@ item that ports it: nothing is silently ignored.
 import typing
 
 from ..config.base import ConfigError, ConfigModel, _coerce
+from ..config.config import ServingConfig
 from ..utils import not_ported
 
 
@@ -32,7 +33,6 @@ class QuantizationConfig(ConfigModel):
 # large and unported; the port accepts the block's JSON and refuses any
 # block that does more than leave its feature off.
 _UNPORTED_BLOCKS = {
-    "serving": "A.2",
     "tensorboard": "A.3",
     "wandb": "A.3",
     "csv_monitor": "A.3",
@@ -69,7 +69,8 @@ class DeepSpeedInferenceConfig(ConfigModel):
     compile_cache_size: int = 32
     # generate() pads the batch to a multiple of this (padded rows dropped).
     batch_bucket_size: int = 1
-    serving: typing.Any = None
+    # continuous-batching serving layer (serving/engine.py ServingEngine)
+    serving: ServingConfig = None
     tensorboard: typing.Any = None
     wandb: typing.Any = None
     csv_monitor: typing.Any = None
@@ -88,6 +89,8 @@ class DeepSpeedInferenceConfig(ConfigModel):
             self.quant = QuantizationConfig()
         if self.moe is None:
             self.moe = MoEInferenceConfig()
+        if self.serving is None:
+            self.serving = ServingConfig()
         if self.dtype not in ("float16", "bfloat16", "float32"):
             raise ConfigError(f"inference dtype must be fp16/bf16/fp32, got {self.dtype}")
         if self.prompt_bucket_policy not in ("pow2", "multiple"):

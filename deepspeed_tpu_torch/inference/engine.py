@@ -9,9 +9,13 @@ emitted ``eos_token_id``. Prefill and decode run eagerly on the engine's
 device; the weights live on the model (``engine.params``) in the serving
 dtype.
 
+``serve`` streams requests through the continuous-batching slot pool of
+``serving/engine.py`` (the ``serving`` config block), built lazily on first
+use over the same weights.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``serve``/``serving`` (A.2), ``load_checkpoint`` (A.5), tensor
-parallelism (A.7) and the static program audits (A.9).
+item: ``load_checkpoint`` (A.5), tensor parallelism (A.7) and the static
+program audits (A.9).
 """
 
 import time
@@ -48,6 +52,7 @@ class InferenceEngine:
         self.mp_world_size = 1
         self._request_seq = 0  # folded into per-request sampling seeds
         self.last_timing = None
+        self._serving = None
         self._init_parameters(model_parameters)
         log_dist(f"InferenceEngine: device={self.device} dtype={config.dtype} "
                  f"max_tokens={config.max_tokens}", ranks=[0])
@@ -107,7 +112,11 @@ class InferenceEngine:
         return self.forward(input_ids)
 
     def destroy(self):
-        """Release the weights and the device memory they held."""
+        """Release the weights, the serving slot pool and the device memory
+        they held."""
+        if self._serving is not None:
+            self._serving.destroy()
+            self._serving = None
         self.module.set_tree({})
         get_accelerator().empty_cache()
 
@@ -196,11 +205,21 @@ class InferenceEngine:
         return len(buckets)
 
     def serve(self, requests=None, **kwargs):
-        raise not_ported("continuous-batching serving (engine.serve)", "A.2")
+        """Continuous-batching streaming serving: yields per-request
+        ``TokenEvent``s as tokens are produced (``serving/engine.py``).
+        Finished requests free their slot mid-flight and queued ones are
+        spliced in without draining the batch. Configured by the inference
+        config's ``serving`` block."""
+        return self.serving.serve(requests, **kwargs)
 
     @property
     def serving(self):
-        raise not_ported("the ServingEngine (engine.serving)", "A.2")
+        """The lazily built ServingEngine bound to this engine's weights."""
+        if self._serving is None:
+            from ..serving import ServingEngine
+
+            self._serving = ServingEngine(self)
+        return self._serving
 
     def decode_program_report(self, *args, **kwargs):
         raise not_ported("decode_program_report (static program audit)", "A.9")

@@ -2,9 +2,9 @@
 
 import threading
 
-from .builder import CUDAOpBuilder, FlashAttentionBuilder  # noqa: F401
+from .builder import CUDAOpBuilder, FlashAttentionBuilder, PagedFlashDecodeBuilder  # noqa: F401
 
-ALL_OPS = {FlashAttentionBuilder.NAME: FlashAttentionBuilder}
+ALL_OPS = {b.NAME: b for b in (FlashAttentionBuilder, PagedFlashDecodeBuilder)}
 
 _LOADED = {}
 _LOCK = threading.Lock()

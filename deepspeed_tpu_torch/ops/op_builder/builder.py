@@ -122,3 +122,18 @@ class FlashAttentionBuilder(CUDAOpBuilder):
         fn.argtypes = ([p] * 4 + [i] * 7 + [ll] * 12
                        + [ctypes.c_float, i, p])
         fn.restype = ctypes.c_int
+
+
+class PagedFlashDecodeBuilder(CUDAOpBuilder):
+    """``csrc/paged_flash_decode.cu``: split-KV decode attention over the paged pool."""
+
+    NAME = "paged_flash_decode"
+    SOURCES = ("paged_flash_decode.cu",)
+
+    def bind(self, lib):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = lib.ds_paged_flash_decode
+        fn.argtypes = [p] * 12 + [i] * 8 + [ll] * 12 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        lib.ds_paged_decode_smem_optin.argtypes = [i]
+        lib.ds_paged_decode_smem_optin.restype = ctypes.c_int

@@ -89,3 +89,92 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.float64, cuda)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, k, v)
+
+
+# -- paged flash-decode --------------------------------------------------------
+
+def _paged_inputs(s_dim, n_heads, kvh, dh, bs, nb_cols, dtype, device, seed=0):
+    """A paged pool with a poisoned garbage block 0, each slot's blocks
+    drawn without replacement, ragged cursors (one at 0) and unbound
+    columns on the garbage block."""
+    from deepspeed_tpu_torch.serving.kv_pool import GARBAGE_BLOCK
+
+    r = np.random.RandomState(seed)
+    n_blocks = s_dim * nb_cols + 1
+    t = lambda *shape: torch.tensor(r.randn(*shape), dtype=torch.float32)
+    kc, vc = t(n_blocks, bs, kvh, dh), t(n_blocks, bs, kvh, dh)
+    kc[GARBAGE_BLOCK] = 1e4
+    vc[GARBAGE_BLOCK] = 1e4
+    pos = r.randint(1, nb_cols * bs, s_dim)
+    pos[0] = 0
+    table = np.full((s_dim, nb_cols), GARBAGE_BLOCK, np.int32)
+    ids = r.permutation(np.arange(1, n_blocks))
+    for s in range(s_dim):
+        used = -(-int(pos[s]) // bs)
+        table[s, :used] = ids[s * nb_cols:s * nb_cols + used]
+    to = lambda x: x.to(device, dtype)
+    return (to(t(s_dim, n_heads, dh)), to(t(s_dim, kvh, dh)), to(t(s_dim, kvh, dh)), to(kc),
+            to(vc), torch.tensor(table, device=device), torch.tensor(pos, dtype=torch.int32,
+                                                                      device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 32, 128, 16, 128, False, None),   # Llama-7B decode, the kernel's own splits
+    (4, 32, 8, 128, 16, 32, True, 4),         # GQA 32/8, alibi, 4 splits
+    (3, 6, 2, 64, 8, 8, True, 1),             # hq 3, one split, small blocks
+    (2, 32, 1, 128, 16, 8, False, 2),         # hq 32: over 48 KB of shared memory
+], ids=["llama7b", "gqa-alibi", "hq3-one-split", "hq32-opt-in"])
+def test_paged_kernel_matches_plain(cuda, dtype, shape):
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import (
+        paged_flash_decode, paged_flash_decode_reference, rounding_bound)
+
+    s_dim, n_heads, kvh, dh, bs, nb_cols, alibi, splits = shape
+    args = _paged_inputs(s_dim, n_heads, kvh, dh, bs, nb_cols, dtype, cuda)
+    slopes = (0.5 ** torch.arange(1, n_heads + 1, dtype=torch.float32, device=cuda)
+              if alibi else None)
+    before = LAUNCH_COUNTS["paged_flash_decode"]
+    out = paged_flash_decode(*args, alibi_slopes=slopes, kv_splits=splits)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["paged_flash_decode"] == before + 1
+    ref = paged_flash_decode_reference(*args, alibi_slopes=slopes, kv_splits=splits or 4)
+    assert out.dtype == dtype and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        limit = 2e-5 + 2e-5 * ref.float().abs()
+    else:
+        limit = 1e-5 + rounding_bound(*args, ref, alibi_slopes=slopes)
+    worst = (diff / limit).max().item()
+    assert worst <= 1.0, f"max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+def test_fused_decode_supported_asks_the_device(cuda):
+    """A GQA group whose blocks need more than 48 KB of shared memory is
+    admitted up to the device's opt-in limit and refused past it."""
+    import types
+
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import fused_decode_supported
+
+    geo = lambda kvh: types.SimpleNamespace(local_attention_window=0, n_heads=256,
+                                            kv_heads=kvh, head_dim=128,
+                                            compute_dtype=torch.float32)
+    assert fused_decode_supported(geo(8), 16, device=cuda)[0]      # hq 32: 70 KB
+    ok, reason = fused_decode_supported(geo(1), 16, device=cuda)   # hq 256: 323 KB
+    assert not ok and "shared memory" in reason
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import paged_flash_decode
+
+    args = list(_paged_inputs(2, 4, 4, 32, 8, 4, torch.bfloat16, cuda))
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_flash_decode(*args)
+    args = list(_paged_inputs(2, 4, 4, 64, 8, 4, torch.bfloat16, cuda))
+    with pytest.raises(TypeError, match="int32"):
+        paged_flash_decode(*args[:5], args[5].long(), args[6])
+    with pytest.raises(TypeError):
+        paged_flash_decode(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="aligned"):
+        kc = torch.empty(args[3].numel() + 1, dtype=args[3].dtype, device=cuda)[1:]
+        paged_flash_decode(*args[:3], kc.view(args[3].shape), *args[4:])

@@ -156,7 +156,7 @@ def test_same_json_same_values_and_overflow_error():
 
 
 @pytest.mark.parametrize("block", [
-    {"serving": {"n_slots": 4}}, {"telemetry": {"enabled": True}},
+    {"serving": {"n_slots": 4, "speculative": {"enabled": True}}}, {"telemetry": {"enabled": True}},
     {"quant": {"enabled": True}}, {"tensor_parallel": {"tp_size": 2}},
 ], ids=["serving", "telemetry", "quant", "tp"])
 def test_unported_blocks_raise_naming_the_roadmap(block):
@@ -168,7 +168,7 @@ def test_unported_blocks_raise_naming_the_roadmap(block):
 
 def test_unported_entry_points_raise():
     eng = deepspeed_tpu_torch.init_inference(port_model(), dtype="float32", device="cpu")
-    for call in (lambda: eng.serve([]), lambda: eng.load_checkpoint("x"),
+    for call in (lambda: eng.serving.trace_decode(), lambda: eng.load_checkpoint("x"),
                  lambda: eng.decode_program_report(),
                  lambda: deepspeed_tpu_torch.init_inference("path/to/ckpt", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A"):

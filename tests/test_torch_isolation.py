@@ -21,6 +21,7 @@ def _one_thread():
 
 
 def test_cpu_generate_in_a_fresh_process_loads_no_jax():
+    """generate() and a paged serve() in a fresh process import no JAX."""
     code = """
 import sys
 import numpy as np
@@ -33,6 +34,15 @@ model = get_model("llama", "tiny", compute_dtype=torch.float32)
 eng = deepspeed_tpu_torch.init_inference(model, dtype="float32", max_tokens=64, device="cpu")
 out = eng.generate(np.random.RandomState(0).randint(0, 1024, (1, 9)), max_new_tokens=3)
 assert out.shape == (1, 12)
+from deepspeed_tpu_torch.serving import Request, VirtualClock
+srv = deepspeed_tpu_torch.init_inference(
+    get_model("llama", "tiny", compute_dtype=torch.float32), dtype="float32", max_tokens=64,
+    device="cpu", serving={"n_slots": 2, "virtual_clock": True,
+                           "kv_pool": {"enabled": True, "attention_backend": "fused"}})
+reqs = [Request(prompt=np.arange(5 + i), max_new_tokens=4) for i in range(3)]
+events = list(srv.serve(reqs))
+assert all(len(r.tokens) == 4 for r in reqs) and sum(e.done for e in events) == 3
+assert srv.serving.metrics.snapshot()["kv_pool"]["attention_backend"] == "fused"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "deepspeed_tpu."))
              or m == "deepspeed_tpu")
