@@ -15,6 +15,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      same seeded weights on both; prefill logits and 8 greedy tokens, then
      ``serve()`` of a few staggered requests: the card's ``fused`` streams
      against the CPU port's ``gather`` streams and the card's ``generate()``;
+     then training at GPT-2-medium width with 2 layers in fp32: one step's
+     loss and grads, and the losses of 3 ``train_batch`` steps;
   4. the generate path: ``init_inference`` on full Llama-7B (32 layers, bf16,
      random weights from a seed) answering requests through ``generate()``,
      with every kernel's launch count read around it;
@@ -22,7 +24,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      pool of 2048-token windows, the ``fused`` decode backend) answering 16
      staggered requests on the wall clock, twice, with the launch counts
      read around the first run, a fused-against-gather decode step and a
-     profile of a decode stretch.
+     profile of a decode stretch;
+  6. the training path: ``initialize`` on full GPT-2 medium at bench.py's
+     shape and config (seq 1024, batch 12, bf16, AdamW, ZeRO 0, flash
+     attention, the CE forward kernel), 2 warm-up and 8 timed ``train_batch``
+     steps on one fixed batch, with the launch counts read around every step
+     and one more step under the profiler.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +72,14 @@ SERVE_N, SERVE_GAP = 16, 0.05
 SHARED, SHARED_PREFIX = (2, 6), 512
 PROFILED_STEPS = 16        # decode steps of run 2 under the profiler
 SAMPLED_REQ = (5, {"temperature": 0.8, "top_k": 40, "seed": 7})
+
+# phase 6: bench.py's training shape and engine config (bench.py:264-311)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB = 12, 1024, 50304
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH, "bf16": {"enabled": True},
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                "zero_optimization": {"stage": 0}, "gradient_clipping": 1.0,
+                "steps_per_print": 1000000}
 
 
 def log(msg):
@@ -728,6 +743,343 @@ def profile_request(torch, eng, ids, wall_ms):
     return out
 
 
+def train_model_config():
+    """Phase 6's model: GPT-2 medium as bench.py builds it (vocab padded to
+    50304), with bench_defaults.json's flash attention and no remat, and the
+    CE forward through its kernel (fused_ce_impl "pallas")."""
+    from deepspeed_tpu_torch.models import gpt2_config
+
+    return gpt2_config("medium", vocab_size=TRAIN_VOCAB, attention_impl="flash", remat=False,
+                       fused_ce=True, fused_ce_impl="pallas")
+
+
+def check_limit(name, diff, limit, tol):
+    """Share of the limit used (above 1 is a miss); raises on a miss."""
+    use = (diff / limit).max().item()
+    if not use <= 1.0:
+        raise AssertionError(f"{name}: |kernel - plain| exceeds {tol} (max abs err "
+                             f"{diff.max().item()}, {use:.2f} of the limit)")
+    return use
+
+
+def phase_train_kernels(torch, F):
+    """The training kernels against their plain versions at phase 6's shapes
+    (the flash forward with its lse, the flash backward, the CE forward) and
+    a few more, each timed beside its bound, its plain version and a
+    PyTorch yardstick: SDPA's forward and backward for the flash kernels,
+    ``F.linear`` + ``logsumexp`` + ``gather`` for the CE forward."""
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import (accumulation_bound,
+                                                            fused_ce_forward,
+                                                            fused_ce_forward_reference)
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (bwd_rounding_bound,
+                                                              flash_attention_bwd,
+                                                              flash_attention_bwd_reference,
+                                                              flash_attention_fwd,
+                                                              flash_attention_reference,
+                                                              rounding_bound)
+
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    out = {"flash_fwd_lse": [], "flash_bwd": [], "ce": []}
+
+    # -- the forward with lse, at the training shape ---------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (rnd(b, s, h, d).to(dtype) for _ in range(3))
+        o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        ref, ref_lse = flash_attention_reference(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            tol, limit = "2e-05 + 2e-05|plain|", TOL_FP32[0] + TOL_FP32[1] * ref.float().abs()
+        else:
+            tol, limit = f"{ATOL_16:g} + rounding bound", ATOL_16 + rounding_bound(q, k, v, ref)
+        use = check_limit(f"flash fwd train {dtype}", (o.float() - ref.float()).abs(), limit, tol)
+        lse_use = check_limit(f"flash lse train {dtype}", (lse - ref_lse).abs(),
+                              1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kernel_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True), 20)
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=True,
+                                                             return_lse=True), 5)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                             20)
+        flops = attention_flops(b, s, s, h, d, True)
+        t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+        n_bytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+        bound_ms = max(t_ops, n_bytes / H100_BYTES) * 1e3
+        r = dict(case="train", dtype=str(dtype).split(".")[1], b=b, s=s, h=h, kv_heads=h, d=d,
+                 causal=True, max_abs_err=(o.float() - ref.float()).abs().max().item(),
+                 lse_max_abs_err=(lse - ref_lse).abs().max().item(), tolerance=tol,
+                 limit_use=use, lse_limit_use=lse_use, ms=kernel_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
+                 flops=flops, bytes=n_bytes)
+        log(f"  flash fwd+lse train {r['dtype']:8s} err {r['max_abs_err']:.2e} ({use:.2f} of the "
+            f"limit), lse err {r['lse_max_abs_err']:.2e} ({lse_use:.2f})  kernel {kernel_ms:.4f} "
+            f"ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({r['bound_by']})")
+        out["flash_fwd_lse"].append(r)
+        del q, k, v, o, lse, ref, ref_lse, limit
+
+    # -- the backward -----------------------------------------------------------------
+    cases = [("train", b, s, s, h, h, True, torch.bfloat16),
+             ("train", b, s, s, h, h, True, torch.float32),
+             ("gqa-16/4", 2, s, s, h, 4, True, torch.bfloat16),
+             ("noncausal", 2, s, s, h, h, False, torch.bfloat16),
+             ("sq512<skv1024", 2, 512, s, h, h, True, torch.bfloat16)]
+    for name, bb, s_q, s_kv, hq, kvh, causal, dtype in cases:
+        q = rnd(bb, s_q, hq, d).to(dtype)
+        k, v = rnd(bb, s_kv, kvh, d).to(dtype), rnd(bb, s_kv, kvh, d).to(dtype)
+        o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+        do = rnd(bb, s_q, hq, d).to(dtype)
+        args = (q, k, v, o, lse, do)
+        grads = flash_attention_bwd(*args, causal=causal)
+        refs = flash_attention_bwd_reference(*args, causal=causal)
+        torch.cuda.synchronize()
+        bounds = bwd_rounding_bound(*args, refs, causal=causal)
+        errs, uses = {}, {}
+        for i, gname in enumerate(("dq", "dk", "dv")):
+            diff = (grads[i].float() - refs[i].float()).abs()
+            if bounds is None:
+                tol, limit = "2e-05 + 2e-05|plain|", TOL_FP32[0] + TOL_FP32[1] * refs[i].float().abs()
+            else:
+                tol, limit = f"{ATOL_16:g} + bwd rounding bound", ATOL_16 + bounds[i]
+            uses[gname] = check_limit(f"flash bwd {name} {dtype} {gname}", diff, limit, tol)
+            errs[gname] = diff.max().item()
+        del bounds, limit, diff
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = None
+        if causal and s_q != s_kv:
+            mask = (torch.arange(s_kv, device="cuda")[None, :]
+                    <= torch.arange(s_q, device="cuda")[:, None] + (s_kv - s_q))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal and mask is None,
+                                              enable_gqa=kvh != hq)
+        gt = do.transpose(1, 2)
+        kernel_ms = time_ms(lambda: flash_attention_bwd(*args, causal=causal), 20)
+        plain_ms = time_ms(lambda: flash_attention_bwd_reference(*args, causal=causal), 3)
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt,
+                                                         retain_graph=True), 20)
+        # 10 d operations per allowed (query, key) pair: S and dP recomputed,
+        # dQ, dK and dV; bytes: q, k, v, o, dO, lse read, dq, dk, dv written
+        flops = attention_flops(bb, s_q, s_kv, hq, d, causal) // 4 * 10
+        t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+        n_bytes = (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel()) \
+            * q.element_size() + lse.numel() * 4
+        bound_ms = max(t_ops, n_bytes / H100_BYTES) * 1e3
+        r = dict(case=name, dtype=str(dtype).split(".")[1], b=bb, s_q=s_q, s_kv=s_kv, h=hq,
+                 kv_heads=kvh, d=d, causal=causal, max_abs_err=max(errs.values()),
+                 max_abs_err_by_grad=errs, limit_use=max(uses.values()),
+                 limit_use_by_grad=uses, tolerance=tol, ms=kernel_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
+                 flops=flops, bytes=n_bytes, tflops=flops / kernel_ms / 1e9)
+        log(f"  flash bwd {name:14s} {r['dtype']:8s} err dq/dk/dv {errs['dq']:.2e}/"
+            f"{errs['dk']:.2e}/{errs['dv']:.2e} ({r['limit_use']:.2f} of the limit)  kernel "
+            f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa bwd {library_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
+        out["flash_bwd"].append(r)
+        del q, k, v, o, lse, do, args, grads, refs, qt, kt, vt, sdpa, gt
+
+    # -- the CE forward ---------------------------------------------------------------
+    tokens = b * s
+    for name, t, vocab, n_ignored, bias in (("train", tokens, TRAIN_VOCAB, 0, False),
+                                            ("vocab50257-ignored", tokens, 50257, 1000, False),
+                                            ("bias", 4096, TRAIN_VOCAB, 0, True)):
+        x = rnd(t, 1024).to(torch.bfloat16)
+        emb = (0.02 * rnd(vocab, 1024)).to(torch.bfloat16)
+        labels = torch.randint(0, vocab, (t,), generator=gen, device="cuda")
+        labels[:n_ignored] = -100
+        safe = torch.where(labels != -100, labels, 0)   # as fused_cross_entropy passes them
+        bvec = rnd(vocab) if bias else None
+        lse, lab = fused_ce_forward(x, emb, safe, bvec)
+        ref_lse, ref_lab = fused_ce_forward_reference(x, emb, safe, bvec)
+        torch.cuda.synchronize()
+        tol = f"{ATOL_16:g} + fp32 accumulation bound"
+        limit = ATOL_16 + accumulation_bound(x, emb, ref_lse)
+        use = max(check_limit(f"ce {name} lse", (lse - ref_lse).abs(), limit, tol),
+                  check_limit(f"ce {name} label logit", (lab - ref_lab).abs(), limit, tol))
+        err = max((lse - ref_lse).abs().max().item(), (lab - ref_lab).abs().max().item())
+
+        def lib():
+            logits = F.linear(x, emb, bvec.to(torch.bfloat16) if bias else None).float()
+            return torch.logsumexp(logits, -1), logits.gather(1, safe[:, None])
+
+        kernel_ms = time_ms(lambda: fused_ce_forward(x, emb, safe, bvec), 10)
+        plain_ms = time_ms(lambda: fused_ce_forward_reference(x, emb, safe, bvec), 3)
+        library_ms = time_ms(lib, 10)
+        flops = 2 * t * vocab * 1024
+        n_bytes = (x.numel() + emb.numel()) * 2 + t * 4 + (vocab * 4 if bias else 0) + t * 8
+        t_ops = flops / H100_BF16_FLOPS
+        bound_ms = max(t_ops, n_bytes / H100_BYTES) * 1e3
+        r = dict(case=name, dtype="bfloat16", tokens=t, d=1024, vocab=vocab, ignored=n_ignored,
+                 bias=bias, max_abs_err=err, tolerance=tol, limit_use=use, ms=kernel_ms,
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
+                 flops=flops, bytes=n_bytes, tflops=flops / kernel_ms / 1e9)
+        log(f"  ce fwd {name:18s} err {err:.2e} ({use:.2f} of the limit)  kernel "
+            f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  linear+logsumexp {library_ms:.4f} ms  "
+            f"bound {bound_ms:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
+        out["ce"].append(r)
+        del x, emb, labels, safe, bvec, lse, lab, ref_lse, ref_lab, limit
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_card_vs_cpu(torch):
+    """Training on the card against the CPU port: GPT-2-medium width (d 1024,
+    16 heads, vocab 50304) with 2 layers in fp32, the same seeded weights on
+    both, batch 2 x seq 256. One forward/backward: the loss and the grads of
+    wte, a block kernel and ln_f; then the losses of 3 ``train_batch`` steps."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_config
+    from deepspeed_tpu_torch.models.layers import flatten_tree, tree_map
+
+    cfg = lambda: gpt2_config("medium", vocab_size=TRAIN_VOCAB, n_layers=2,
+                              attention_impl="flash", fused_ce_impl="pallas")
+    ds = {"train_batch_size": 2, "seed": 5, "gradient_clipping": 1.0,
+          "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    card, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg()), config=ds)
+    cpu, *_ = deepspeed_tpu_torch.initialize(
+        model=CausalLM(cfg()), config=ds, device="cpu",
+        model_parameters=tree_map(lambda t: t.detach().cpu(), card.params))
+    rng = np.random.RandomState(6)
+    batches = [{"input_ids": rng.randint(0, TRAIN_VOCAB, (2, 256))} for _ in range(4)]
+    losses = {}
+    for name, eng in (("card", card), ("cpu", cpu)):
+        losses[name] = [eng.forward(batches[0]).item()]
+        eng.backward()
+    grads = {}
+    for key in ("wte/weight", "blocks/mlp/fc/kernel", "ln_f/scale"):
+        g_card = flatten_tree(card.params)[key].grad.cpu()
+        g_cpu = flatten_tree(cpu.params)[key].grad
+        err, scale = (g_card - g_cpu).abs().max().item(), g_cpu.abs().max().item()
+        # fp32 on both sides (TF32 off): sums in another order
+        if not err <= 1e-4 * scale + 1e-8:
+            raise AssertionError(f"grad {key}: card vs CPU max abs err {err} (|grad| max {scale})")
+        grads[key] = {"max_abs_err": err, "max_abs": scale}
+    for eng in (card, cpu):
+        eng.step()
+    for name, eng in (("card", card), ("cpu", cpu)):
+        losses[name] += [float(eng.train_batch(batch=bt)) for bt in batches[1:]]
+    for a, b_ in zip(losses["card"], losses["cpu"]):
+        if not abs(a - b_) <= 1e-4 * abs(b_):
+            raise AssertionError(f"card vs CPU training losses {losses}")
+    log(f"  loss card {losses['card'][0]:.6f} cpu {losses['cpu'][0]:.6f}; grads max abs err "
+        + ", ".join(f"{k} {v['max_abs_err']:.2e} (|g| {v['max_abs']:.2e})"
+                    for k, v in grads.items()))
+    log(f"  3 train_batch steps: card {losses['card'][1:]} cpu {losses['cpu'][1:]}")
+    card.destroy()
+    cpu.destroy()
+    return {"losses": losses, "grads": grads}
+
+
+def model_flops_per_step(cfg, tokens, seq):
+    """6 N T (forward 2, backward 4 operations per parameter and token, the
+    tied head's GEMM included) plus the attention's 12 L d h pairs (QK^T and
+    PV: 4 d per allowed causal pair forward, twice that backward)."""
+    pairs = seq * (seq + 1) // 2
+    return (6 * cfg.num_params() * tokens
+            + 12 * cfg.n_layers * cfg.head_dim * cfg.n_heads * pairs * (tokens // seq))
+
+
+def phase_training(torch, checked):
+    """Phase 6: ``initialize`` -> ``train_batch`` on full GPT-2 medium at
+    bench.py's shape and config, on one fixed batch drawn from seed 0:
+    TRAIN_WARMUP warm-up steps, then TRAIN_STEPS timed steps, each ended by
+    a host read of its loss; the launch counts read around every step; one
+    more step under torch.profiler."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+
+    cfg = train_model_config()
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
+    if shape not in checked["flash"] or (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model,
+                                         cfg.vocab_size) not in checked["ce"]:
+        raise AssertionError(f"phase 6's shapes {shape} were not held against the plain "
+                             f"versions in phase 2 ({checked})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    log(f"  init GPT-2 medium ({cfg.num_params() / 1e6:.1f} M params, fp32 masters, bf16 "
+        f"compute) in {time.perf_counter() - t0:.3f} s")
+    batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                            (TRAIN_BATCH, TRAIN_SEQ))}
+    expected = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "fused_ce_forward": 1}
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        before = dict(LAUNCH_COUNTS)
+        t = time.perf_counter()
+        loss = float(engine.train_batch(batch=batch))   # the host read ends the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        delta = {k: LAUNCH_COUNTS[k] - before[k] for k in expected}
+        if delta != expected:
+            raise AssertionError(f"step {step}: launches {delta}, expected {expected}")
+        losses.append(loss)
+        log(f"  step {step}: loss {loss:.6f}  {step_ms[-1]:.1f} ms")
+    launches = dict(LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite or not falling: {losses}")
+    timed = sorted(step_ms[TRAIN_WARMUP:])
+    median_ms = timed[len(timed) // 2] if len(timed) % 2 else \
+        (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops_per_step(cfg, tokens, TRAIN_SEQ)
+    out = {"model": "gpt2-medium (bench.py: vocab 50304, flash, no remat, fused CE pallas)",
+           "params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "config": TRAIN_CONFIG, "losses": losses, "step_ms": step_ms,
+           "warmup_steps": TRAIN_WARMUP, "step_ms_median": median_ms,
+           "tokens_per_s": tokens / median_ms * 1e3, "peak_gib": peak,
+           "launches": launches, "launches_per_step": expected,
+           "model_flops_per_step": flops,
+           "model_flops_formula": "6 N T + 12 L d_head h (causal pairs) (T / seq)",
+           "mfu_vs_989_tflops": flops / (median_ms / 1e3) / H100_BF16_FLOPS}
+    log(f"  step ms median {median_ms:.1f} over {TRAIN_STEPS} steps; tokens/s "
+        f"{out['tokens_per_s']:.0f}; model FLOPs/step ({out['model_flops_formula']}) "
+        f"{flops / 1e12:.2f} T = {out['mfu_vs_989_tflops']:.3f} of 989 TFLOP/s; peak device "
+        f"memory {peak:.2f} GiB; launches per step {expected}")
+    out["profile"] = profile_train_step(torch, engine, batch, median_ms)
+    engine.destroy()
+    return out
+
+
+def profile_train_step(torch, engine, batch, wall_ms):
+    """One more ``train_batch`` under torch.profiler: device kernel time by
+    name, and the device's busy and idle share of the median unprofiled step
+    wall (the profiler's host cost would inflate the profiled wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        float(engine.train_batch(batch=batch))
+        profiled_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        log("  profile: the trace shows no device time (not measured)")
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:12]
+    out = {"step_wall_ms": wall_ms, "profiled_wall_ms": profiled_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "top_kernels": [{"name": e.key[:100], "ms": e.device_time_total / 1e3,
+                            "count": e.count} for e in top]}
+    log(f"  profile: device busy {busy_ms:.1f} ms of the median {wall_ms:.1f} ms step (idle "
+        f"share {out['device_idle_share']:.3f}; the profiled step took {profiled_ms:.1f} ms)")
+    for k in out["top_kernels"]:
+        log(f"    {k['ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -776,9 +1128,17 @@ def main():
     cases = phase_kernels(torch, F, main_shapes)
     paged_cases = phase_paged_kernels(torch, F)
     torch.cuda.empty_cache()
+    train_cases = phase_train_kernels(torch, F)
+    checked = {"flash": {(c["b"], c["s_q"], c["h"], c["kv_heads"], c["d"])
+                         for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]},
+               "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]}}
 
     log("phase 3: card against the CPU port (Llama-7B width, 2 layers, fp32)")
     parity_err = phase_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    log("phase 3: training on the card against the CPU port (GPT-2-medium width, 2 layers, "
+        "fp32)")
+    train_parity = phase_train_card_vs_cpu(torch)
     torch.cuda.empty_cache()
 
     log("phase 4: generate path (init_inference + generate, Llama-7B, bf16)")
@@ -787,10 +1147,19 @@ def main():
     log("phase 5: serving path (serve(), 8 slots, paged pool, fused decode, Llama-7B, bf16)")
     serving = phase_serving(torch, eng, main_shapes)
     eng.destroy()
-    by_path = {"generate": launches, "serve": serving["launches"]}
-    for path, counts in by_path.items():
-        for name in (("flash_attention_fwd",) if path == "generate" else tuple(counts)):
-            if counts[name] == 0:
+    del eng
+    torch.cuda.empty_cache()
+
+    log("phase 6: training path (initialize + train_batch, GPT-2 medium, b12 x s1024, bf16)")
+    training = phase_training(torch, checked)
+    by_path = {"generate": launches, "serve": serving["launches"],
+               "train": training["launches"]}
+    path_kernels = {"generate": ("flash_attention_fwd",),
+                    "serve": ("flash_attention_fwd", "paged_flash_decode"),
+                    "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward")}
+    for path, names in path_kernels.items():
+        for name in names:
+            if by_path[path][name] == 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
 
     # the headline is the longest prefill of phases 4 and 5; "cases" holds every shape
@@ -798,6 +1167,9 @@ def main():
     main_case = next(c for c in cases
                      if c["case"] == f"main-b{b_main}-s{s_main}" and c["dtype"] == "bfloat16")
     paged_main = next(c for c in paged_cases if c["main_path"] and c["dtype"] == "bfloat16")
+    bwd_main = next(c for c in train_cases["flash_bwd"]
+                    if c["case"] == "train" and c["dtype"] == "bfloat16")
+    ce_main = next(c for c in train_cases["ce"] if c["case"] == "train")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -833,13 +1205,49 @@ def main():
                  f"{paged_main['cursors']}, {paged_main['splits']} splits, bf16 (phase 5's "
                  f"decode)",
         "cases": paged_cases,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:517",
+        "also_replaces": ["deepspeed_tpu/ops/pallas/flash_attention.py:538",
+                          "deepspeed_tpu/ops/pallas/flash_attention.py:565",
+                          "deepspeed_tpu/ops/pallas/flash_attention.py:591"],
+        "launches": training["launches"]["flash_attention_bwd"],
+        "launches_by_path": {p: c["flash_attention_bwd"] for p, c in by_path.items()},
+        "max_abs_err": bwd_main["max_abs_err"],
+        "ms": bwd_main["ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": bwd_main["library_ms"],
+        "shape": f"b={TRAIN_BATCH} s={TRAIN_SEQ} h=16 d=64 causal bf16 (phase 6's layers)",
+        "cases": train_cases["flash_bwd"],
+        "forward_lse_cases": train_cases["flash_fwd_lse"],
+    }, {
+        "name": "fused_ce_forward",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/fused_ce_fwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/cross_entropy.py:108",
+        "launches": training["launches"]["fused_ce_forward"],
+        "launches_by_path": {p: c["fused_ce_forward"] for p, c in by_path.items()},
+        "max_abs_err": ce_main["max_abs_err"],
+        "ms": ce_main["ms"],
+        "plain_ms": ce_main["plain_ms"],
+        "bound_ms": ce_main["bound_ms"],
+        "bound_by": ce_main["bound_by"],
+        "library_ms": ce_main["library_ms"],
+        "shape": f"T={TRAIN_BATCH * TRAIN_SEQ} d=1024 V={TRAIN_VOCAB} bf16 (phase 6's head)",
+        "cases": train_cases["ce"],
     }]
     log(f"summary: card {card_line}; build {build_s:.1f} s; card-vs-CPU logits err "
         f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
-        f"(serve); total {time.perf_counter() - t_all:.1f} s")
+        f"(serve), {training['peak_gib']:.2f} GiB (train); train step "
+        f"{training['step_ms_median']:.1f} ms; total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"training": training, "train_card_vs_cpu": train_parity}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,41 @@ written by hand for Hopper (``csrc/``). It imports neither ``jax`` nor
 ``deepspeed_tpu``. The port goes slice by slice (ROADMAP.md queue A); this
 package currently serves ``init_inference(...).generate(...)`` and the
 continuous-batching ``init_inference(...).serve(...)`` (``serving/``) for
-the dense decoder families.
+the dense decoder families, and trains them with
+``initialize(...)`` -> ``engine.train_batch(...)`` at ZeRO stage 0 on one
+device (``runtime/``).
 """
 
 __version__ = "0.1.0"
 
 from .accelerator import get_accelerator, set_accelerator  # noqa: F401
-from .config import ConfigError  # noqa: F401
+from .config import ConfigError, DeepSpeedConfig, load_config  # noqa: F401
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mesh=None, collate_fn=None,
+               config=None, config_params=None, device=None):
+    """Build a training engine (counterpart of ``deepspeed_tpu.initialize``).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    ``device`` defaults to the CUDA device and raises when there is none;
+    pass ``device="cpu"`` to train on the CPU. A ``mesh`` is distribution
+    (ROADMAP A.7)."""
+    from .runtime.engine import DeepSpeedEngine
+    from .utils import not_ported
+
+    config = config if config is not None else config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if config is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a config (dict or JSON path)")
+    if mesh is not None:
+        raise not_ported("initialize(mesh=...) (a device mesh)", "A.7")
+    engine = DeepSpeedEngine(model=model, optimizer=optimizer,
+                             model_parameters=model_parameters, training_data=training_data,
+                             lr_scheduler=lr_scheduler, collate_fn=collate_fn,
+                             config=load_config(config), device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 def init_inference(model=None, config=None, device=None, **kwargs):

@@ -1,4 +1,4 @@
-"""The serving config (copy of the serving classes of ``deepspeed_tpu/config/config.py``).
+"""The serving and training configs (copies of classes of ``deepspeed_tpu/config/config.py``).
 
 ``ServingConfig``, ``KVPoolConfig``, ``ChunkedPrefillConfig`` and ``SLOConfig``
 keep the JAX package's keys, defaults and ``ConfigError`` cases, so the same
@@ -8,8 +8,22 @@ migration, disaggregated pools, rebalancing, autoscaling, tenants, the
 degraded ladder) still parse, but one that asks for anything raises
 ``NotImplementedError`` naming the ROADMAP item that ports it, as does an
 int8 KV pool: nothing is silently ignored.
+
+``DeepSpeedConfig`` is the training JSON of ``initialize``: the batch
+triangle, optimizer, scheduler, fp16/bf16, gradient clipping and ZeRO stage
+0 on one device, with the JAX package's keys, defaults and ``ConfigError``
+cases. The blocks of features the port does not train with yet parse as
+their JSON, and one that turns its feature on raises ``NotImplementedError``
+naming its ROADMAP item (``UNPORTED_TRAINING_BLOCKS``). Keys the JAX engine
+reads nowhere (``activation_checkpointing``, ``prescale_gradients``,
+``gradient_predivide_factor``, ``sparse_gradients``, ``data_types``,
+``zero_allow_untested_optimizer``, the ZeRO bucket knobs) parse and do
+nothing here either.
 """
 
+import enum
+import json
+import os
 import typing
 
 from ..utils import not_ported
@@ -234,3 +248,345 @@ class ServingConfig(ConfigModel):
             raise not_ported("serving.policy='weighted_fair' (tenant fair queuing)", "A.3")
         if self.max_prefills_per_step < 1:
             raise ConfigError("serving.max_prefills_per_step must be >= 1")
+
+
+# ---------------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------------
+class OffloadDeviceEnum(str, enum.Enum):
+    none = "none"
+    cpu = "cpu"
+    nvme = "nvme"
+
+
+class OptimizerConfig(ConfigModel):
+    type: str = "adamw"
+    params: dict = {}
+
+
+class SchedulerConfig(ConfigModel):
+    type: str = ""
+    params: dict = {}
+
+
+class FP16Config(ConfigModel):
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+
+class BF16Config(ConfigModel):
+    enabled: bool = False
+
+
+class DeepSpeedZeroOffloadParamConfig(ConfigModel):
+    device: OffloadDeviceEnum = OffloadDeviceEnum.none
+    nvme_path: str = ""
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+
+class DeepSpeedZeroOffloadOptimizerConfig(ConfigModel):
+    device: OffloadDeviceEnum = OffloadDeviceEnum.none
+    nvme_path: str = ""
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+
+
+class ZeroConfig(ConfigModel):
+    """ZeRO. The port trains at stage 0 on one device; stages 1-3 are
+    ROADMAP A.7 and offload A.8, each raising when asked for."""
+
+    stage: int = 0
+    zero3_gather_mode: str = "compiler"
+    zero3_gather_impl: str = "constraint"
+    zero3_gather_dtype: str = "auto"
+    zero3_gather_block: int = 256
+    grad_reduce_dtype: str = "fp32"
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: bool = True
+    round_robin_gradients: bool = False
+    offload_param: DeepSpeedZeroOffloadParamConfig = DeepSpeedZeroOffloadParamConfig
+    offload_optimizer: DeepSpeedZeroOffloadOptimizerConfig = DeepSpeedZeroOffloadOptimizerConfig
+    sub_group_size: int = 1_000_000_000
+    prefetch_bucket_size: int = 50_000_000
+    param_persistence_threshold: int = 100_000
+    model_persistence_threshold: int = 2 ** 62
+    max_live_parameters: int = 1_000_000_000
+    max_reuse_distance: int = 1_000_000_000
+    gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    elastic_checkpoint: bool = False
+
+    deprecated_fields = {
+        "stage3_gather_16bit_weights_on_model_save": "gather_16bit_weights_on_model_save",
+        "stage3_max_live_parameters": "max_live_parameters",
+        "stage3_max_reuse_distance": "max_reuse_distance",
+        "stage3_prefetch_bucket_size": "prefetch_bucket_size",
+        "stage3_param_persistence_threshold": "param_persistence_threshold",
+        "cpu_offload": "offload_optimizer",
+    }
+
+    def _validate(self):
+        if self.stage not in (0, 1, 2, 3):
+            raise ConfigError(f"zero_optimization.stage must be in 0..3, got {self.stage}")
+        if self.zero3_gather_mode not in ("compiler", "per_layer"):
+            raise ConfigError(
+                f"zero_optimization.zero3_gather_mode must be 'compiler' or "
+                f"'per_layer', got {self.zero3_gather_mode!r}")
+        if self.zero3_gather_dtype not in ("auto", "fp32", "bf16", "int8"):
+            raise ConfigError(
+                f"zero_optimization.zero3_gather_dtype must be one of "
+                f"auto|fp32|bf16|int8, got {self.zero3_gather_dtype!r}")
+        if self.zero3_gather_dtype in ("bf16", "int8"):
+            if self.stage != 3:
+                raise ConfigError(
+                    f"zero_optimization.zero3_gather_dtype="
+                    f"{self.zero3_gather_dtype!r} requires stage 3 (got stage "
+                    f"{self.stage}); below stage 3 params are not partitioned "
+                    f"and there is no weight gather to compress")
+            if self.zero3_gather_mode != "per_layer":
+                raise ConfigError(
+                    f"zero_optimization.zero3_gather_dtype="
+                    f"{self.zero3_gather_dtype!r} requires "
+                    f"zero3_gather_mode='per_layer' (got "
+                    f"{self.zero3_gather_mode!r})")
+        if self.zero3_gather_block < 1:
+            raise ConfigError(
+                f"zero_optimization.zero3_gather_block must be >= 1, got "
+                f"{self.zero3_gather_block}")
+        if self.grad_reduce_dtype not in ("fp32", "bf16"):
+            raise ConfigError(
+                f"zero_optimization.grad_reduce_dtype must be 'fp32' or "
+                f"'bf16', got {self.grad_reduce_dtype!r}")
+        if self.zero3_gather_impl not in ("constraint", "shard_map"):
+            raise ConfigError(
+                f"zero3_gather_impl must be 'constraint' or 'shard_map', got "
+                f"{self.zero3_gather_impl!r}")
+        if self.stage > 0:
+            raise not_ported(f"zero_optimization.stage={self.stage}", "A.7")
+        for name in ("offload_param", "offload_optimizer"):
+            if getattr(self, name).device != OffloadDeviceEnum.none:
+                raise not_ported(f"zero_optimization.{name}", "A.8")
+
+    @classmethod
+    def from_dict(cls, d):
+        d = dict(d or {})
+        # legacy bool cpu_offload -> offload_optimizer section
+        if isinstance(d.get("cpu_offload"), bool):
+            flag = d.pop("cpu_offload")
+            if flag:
+                d.setdefault("offload_optimizer", {"device": "cpu"})
+        return super().from_dict(d)
+
+
+class ActivationCheckpointingConfig(ConfigModel):
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: int = 0
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+class MeshConfig(ConfigModel):
+    """Axis sizes of the JAX package's device mesh. The port trains on one
+    device: any axis larger than one is distribution (ROADMAP A.7)."""
+
+    data: int = -1
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+    expert: int = 1
+
+    def _validate(self):
+        big = {k: v for k, v in self.to_dict().items()
+               if v != 1 and not (k == "data" and v == -1)}
+        if big:
+            raise not_ported(f"a mesh larger than one device ({big})", "A.7")
+
+
+class PipelineConfig(ConfigModel):
+    schedule: str = "1f1b"  # 1f1b | gpipe; read only with pipe > 1 (A.7)
+
+
+# block -> ROADMAP item. Each parses as its JSON and turns its feature on
+# with "enabled": true (off by default, as in the JAX package), which raises.
+UNPORTED_TRAINING_BLOCKS = {
+    "telemetry": "A.3",
+    "health": "A.3",
+    "tensorboard": "A.3",
+    "wandb": "A.3",
+    "csv_monitor": "A.3",
+    "comms_logger": "A.3",
+    "elastic": "A.7",
+    "gradient_compression": "A.7",
+    "hybrid_engine": "A.9",
+    "flops_profiler": "A.9",
+    "curriculum_learning": "A.9",
+    "progressive_layer_drop": "A.9",
+}
+
+
+def _block_turns_feature_on(block):
+    if block is None:
+        return False
+    if not isinstance(block, dict):
+        raise ConfigError(f"expected a dict config block, got {type(block)}")
+    return _coerce(block.get("enabled", False), bool, "enabled")
+
+
+class DeepSpeedConfig(ConfigModel):
+    """Top-level training config (the JAX ``DeepSpeedConfig``)."""
+
+    train_batch_size: typing.Optional[int] = None
+    train_micro_batch_size_per_gpu: typing.Optional[int] = None
+    gradient_accumulation_steps: typing.Optional[int] = None
+    steps_per_print: int = 10
+    optimizer: OptimizerConfig = OptimizerConfig
+    scheduler: SchedulerConfig = SchedulerConfig
+    fp16: FP16Config = FP16Config
+    bf16: BF16Config = BF16Config
+    zero_optimization: ZeroConfig = ZeroConfig
+    zero_allow_untested_optimizer: bool = False
+    gradient_clipping: float = 0.0
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    sparse_gradients: bool = False
+    activation_checkpointing: ActivationCheckpointingConfig = ActivationCheckpointingConfig
+    mesh: MeshConfig = MeshConfig
+    pipeline: PipelineConfig = PipelineConfig
+    # the checkpoint engine block: saving and loading are ROADMAP A.5
+    checkpoint: dict = {}
+    hybrid_engine: typing.Any = None
+    tensorboard: typing.Any = None
+    wandb: typing.Any = None
+    csv_monitor: typing.Any = None
+    telemetry: typing.Any = None
+    health: typing.Any = None
+    elastic: typing.Any = None
+    comms_logger: typing.Any = None
+    flops_profiler: typing.Any = None
+    data_types: dict = {}
+    curriculum_learning: typing.Any = None
+    progressive_layer_drop: typing.Any = None
+    gradient_compression: typing.Any = None
+    compression_training: dict = {}
+    communication_data_type: typing.Optional[str] = None
+    wall_clock_breakdown: bool = False
+    memory_breakdown: bool = False
+    dump_state: bool = False
+    gradient_checkpointing: bool = False
+    seed: int = 1234
+
+    deprecated_fields = {"train_micro_batch_size": "train_micro_batch_size_per_gpu"}
+
+    # -- batch triangle -------------------------------------------------------------
+    def resolve_batch_size(self, dp_world_size):
+        """Resolve/validate the batch-size triangle against ``dp_world_size``:
+        given any subset of {train_batch_size, train_micro_batch_size_per_gpu,
+        gradient_accumulation_steps}, infer the rest, and check
+        ``train = micro * grad_accum * dp_world``."""
+        tbs = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        for name, v in (("train_batch_size", tbs),
+                        ("train_micro_batch_size_per_gpu", micro),
+                        ("gradient_accumulation_steps", gas),
+                        ("dp_world_size", dp_world_size)):
+            if v is not None and v <= 0:
+                raise ConfigError(f"{name} must be positive, got {v}")
+
+        if tbs is not None and micro is not None and gas is None:
+            gas, rem = divmod(tbs, micro * dp_world_size)
+            if rem:
+                raise ConfigError(
+                    f"train_batch_size {tbs} is not divisible by "
+                    f"micro_batch {micro} * dp_world {dp_world_size}"
+                )
+        elif tbs is not None and micro is None and gas is not None:
+            micro, rem = divmod(tbs, gas * dp_world_size)
+            if rem:
+                raise ConfigError(
+                    f"train_batch_size {tbs} is not divisible by "
+                    f"grad_accum {gas} * dp_world {dp_world_size}"
+                )
+        elif tbs is not None and micro is None and gas is None:
+            gas = 1
+            micro, rem = divmod(tbs, dp_world_size)
+            if rem:
+                raise ConfigError(
+                    f"train_batch_size {tbs} is not divisible by dp_world {dp_world_size}"
+                )
+        elif tbs is None and micro is not None:
+            gas = gas or 1
+            tbs = micro * gas * dp_world_size
+        elif tbs is None and micro is None:
+            raise ConfigError(
+                "At least train_batch_size or train_micro_batch_size_per_gpu must be set"
+            )
+
+        if tbs != micro * gas * dp_world_size:
+            raise ConfigError(
+                f"Batch-size triangle violated: train_batch_size ({tbs}) != "
+                f"micro ({micro}) * grad_accum ({gas}) * dp_world ({dp_world_size})"
+            )
+        if tbs <= 0 or micro <= 0 or gas <= 0:
+            raise ConfigError("Batch sizes must be positive")
+
+        self.train_batch_size = tbs
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas
+        return tbs, micro, gas
+
+    def _validate(self):
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ConfigError("fp16 and bf16 cannot both be enabled")
+        for name, item in UNPORTED_TRAINING_BLOCKS.items():
+            if _block_turns_feature_on(getattr(self, name)):
+                raise not_ported(f"training config block '{name}'", item)
+        if self.compression_training:
+            raise not_ported("training config block 'compression_training'", "A.9")
+        if self.checkpoint:
+            raise not_ported("training config block 'checkpoint' (the checkpoint engine)",
+                             "A.5")
+        if self.wall_clock_breakdown:
+            raise not_ported("wall_clock_breakdown (step timers)", "A.3")
+        if self.communication_data_type is not None:
+            raise not_ported("communication_data_type (gradient reduction dtype)", "A.7")
+
+    @property
+    def mixed_precision_dtype(self):
+        if self.fp16.enabled:
+            return "float16"
+        if self.bf16.enabled:
+            return "bfloat16"
+        return "float32"
+
+
+def load_config(config) -> DeepSpeedConfig:
+    """Accept a path to a JSON file or an in-memory dict."""
+    if isinstance(config, DeepSpeedConfig):
+        return config
+    if isinstance(config, str):
+        if not os.path.exists(config):
+            raise ConfigError(f"DeepSpeed config file not found: {config}")
+        with open(config) as f:
+            config = json.load(f)
+    if not isinstance(config, dict):
+        raise ConfigError(f"config must be a dict or JSON path, got {type(config)}")
+    return DeepSpeedConfig.from_dict(config)

@@ -34,7 +34,10 @@
 //     shuffles) masks the ragged tail and the diagonal; P is rounded to the
 //     input type (as the TPU kernel's p.astype(v.dtype)) and O += P V
 //     accumulates in an fp32 tile in shared memory;
-//   * the last step divides by the row sum and writes o in the input type.
+//   * the last step divides by the row sum and writes o in the input type and,
+//     when the caller passes an lse buffer (the training forward, whose
+//     backward recomputes P from it), lse = m + log(l) in fp32 per row, as the
+//     TPU kernel emits under its vjp (there lane-broadcast, here [b, h, s_q]).
 // The C entry point launches on the caller's stream, does not synchronise and
 // returns the cudaError_t of the launch.
 
@@ -92,6 +95,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [b, heads, s_q] fp32, or null when the caller needs no lse
   int heads, kv_heads, s_q, s_kv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale;
@@ -340,6 +344,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     const int c = i % D;
     og[r * p.o_ss + c] = from_float<T>(sO[r * S::LD_O + c] / fmaxf(sL[r], 1e-30f));
   }
+  if (p.lse != nullptr) {
+    float* lg = p.lse + ((long long)b * p.heads + h) * p.s_q + q0;
+    for (int r = threadIdx.x; r < q_rows; r += THREADS) lg[r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  }
 }
 
 template <typename T, int D>
@@ -365,13 +373,14 @@ cudaError_t launch_d(const Params& p, int batch, int head_dim, cudaStream_t stre
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements; the
-// last dimension of every tensor is contiguous. Returns a cudaError_t.
+// last dimension of every tensor is contiguous. lse is null or a contiguous
+// [batch, heads, s_q] fp32 buffer. Returns a cudaError_t.
 extern "C" int ds_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int batch, int heads,
     int kv_heads, int s_q, int s_kv, int head_dim, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-    float scale, int causal, void* stream) {
+    float scale, int causal, float* lse, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || s_q <= 0 ||
       s_kv <= 0 || (causal && s_q > s_kv))
     return (int)cudaErrorInvalidValue;
@@ -380,6 +389,7 @@ extern "C" int ds_flash_attention_fwd(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.s_q = s_q;

@@ -55,10 +55,11 @@ def unflatten_tree(flat):
 
 
 class ParamTree(nn.Module):
-    """An ``nn.Module`` holding a nested dict of tensors as parameters
-    (inference weights: ``requires_grad=False``)."""
+    """An ``nn.Module`` holding a nested dict of tensors as parameters:
+    inference weights with ``requires_grad=False``, the training engine's
+    fp32 masters with ``requires_grad=True``."""
 
-    def set_tree(self, tree):
+    def set_tree(self, tree, requires_grad=False):
         for name in list(self._parameters):
             del self._parameters[name]
         for name in list(self._modules):
@@ -66,10 +67,10 @@ class ParamTree(nn.Module):
         for k, v in tree.items():
             if isinstance(v, dict):
                 child = ParamTree()
-                child.set_tree(v)
+                child.set_tree(v, requires_grad=requires_grad)
                 self.add_module(k, child)
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=requires_grad))
 
     def tree(self):
         out = {k: m.tree() for k, m in self._modules.items()}

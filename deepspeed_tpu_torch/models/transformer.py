@@ -4,17 +4,22 @@ The block covers the dense decoder variants: pre/post-norm, learned / rotary
 (full, partial, interleaved) / ALiBi positions, MHA with optional GQA, gelu
 MLP or SwiGLU, parallel attention + MLP (GPT-J, GPT-NeoX). Block params are
 stacked along a leading layer axis, as the JAX package stacks them for its
-layer scan; the port runs the layers in a Python loop over views.
+layer scan; the port runs the layers in a Python loop over one unbind of
+each stacked leaf, so a backward stacks each leaf's per-layer grads once.
 
-Inference forward only: loss, remat, pipeline, ZeRO, sequence parallelism,
-MoE and banded local attention raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Training: ``CausalLM.loss`` (shifted next-token labels, the fused
+vocab-chunked cross-entropy or the materialized-logits one) and per-block
+rematerialisation (``remat_policy="nothing_saveable"``). Other remat
+policies, dropout in a training forward, pipeline, ZeRO, sequence
+parallelism, MoE and banded local attention raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 import dataclasses
 import typing
 
 import torch
+import torch.utils.checkpoint
 
 from . import layers as L
 from ..utils import not_ported
@@ -55,14 +60,15 @@ class TransformerConfig:
     layernorm_eps: float = 1e-5
     initializer_range: float = 0.02
     scan_layers: bool = True
-    # loss-side knobs: parsed for config parity, read by the loss (ROADMAP A.6)
+    # loss-side knobs (CausalLM.head_ce); fused_ce_impl "pallas" is the CUDA
+    # CE forward kernel, "xla" the chunked torch matmuls
     fused_ce: bool = True
     fused_ce_chunks: int = 8
     fused_ce_impl: str = "xla"
     remat: bool = False
     remat_policy: str = "nothing_saveable"
     compute_dtype: typing.Any = torch.bfloat16
-    attention_impl: str = "xla"  # xla | flash (the CUDA kernel; forward only)
+    attention_impl: str = "xla"  # xla | flash (the CUDA kernels, forward and backward)
     attention_logits_dtype: str = "fp32"
     sparse_pattern: str = "fixed"
     sparse_block: int = 128
@@ -128,8 +134,9 @@ class TransformerConfig:
             raise not_ported("banded local attention (local_attention_window > 0)", "A.9")
         if self.sequence_parallel or self.pipeline_stages > 1:
             raise not_ported("sequence / pipeline parallelism", "A.7")
-        if self.remat:
-            raise not_ported("activation rematerialisation (remat)", "A.6")
+        if self.remat and self.remat_policy != "nothing_saveable":
+            raise not_ported(f"remat_policy={self.remat_policy!r} (the port rematerialises "
+                             f"whole blocks: nothing_saveable)", "A.9")
         if self.activation_quant_bits:
             raise not_ported("activation quantization", "A.9")
 
@@ -278,10 +285,32 @@ def block_apply(cfg, p, x, mask=None, rope=None, alibi=None):
     return _norm_apply(cfg, p["ln_2"], x + mlp(x))
 
 
+def unstack_layers(cfg, stacked_params):
+    """Every layer's params from ONE cast and ONE unbind per stacked leaf:
+    the matmul weights go to the compute dtype (norm params stay as stored,
+    as ``_cast_block_params`` keeps them), so a backward casts and stacks
+    each leaf's per-layer grads once instead of scattering each layer's
+    grad into a zero copy of the whole stack."""
+    parts = {}
+    for path, leaf in L.flatten_tree(stacked_params).items():
+        if path.split("/")[0] in ("attn", "mlp") and leaf.is_floating_point():
+            leaf = leaf.to(cfg.compute_dtype)
+        parts[path] = leaf.unbind(0)
+    return [L.unflatten_tree({path: p[i] for path, p in parts.items()})
+            for i in range(cfg.n_layers)]
+
+
 def stack_apply(cfg, stacked_params, x, mask=None, rope=None, alibi=None):
-    for i in range(cfg.n_layers):
-        x = block_apply(cfg, layer_params(stacked_params, i), x, mask=mask,
-                        rope=rope, alibi=alibi)
+    """The blocks in order. With ``remat`` and grad on, each block is
+    rematerialised in the backward (``nothing_saveable``: only its input is
+    kept)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in unstack_layers(cfg, stacked_params):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block_apply, cfg, p, x, mask, rope, alibi,
+                                                  use_reentrant=False)
+        else:
+            x = block_apply(cfg, p, x, mask=mask, rope=rope, alibi=alibi)
     return x
 
 
@@ -331,9 +360,10 @@ class CausalLM(L.ParamTree):
         return {k: tuple(v.shape) for k, v in
                 L.flatten_tree(self.init(device="meta")).items()}
 
-    def load_params(self, params):
-        """Register ``params`` (a tree of tensors) as this module's weights;
-        missing or extra keys and shape mismatches raise."""
+    def load_params(self, params, requires_grad=False):
+        """Register ``params`` (a tree of tensors) as this module's weights
+        (trainable with ``requires_grad``); missing or extra keys and shape
+        mismatches raise."""
         expected = self.param_shapes()
         flat = L.flatten_tree(params)
         missing = sorted(set(expected) - set(flat))
@@ -345,7 +375,7 @@ class CausalLM(L.ParamTree):
                if tuple(v.shape) != expected[k]}
         if bad:
             raise ValueError(f"param shapes (got, expected) do not match the config: {bad}")
-        self.set_tree(params)
+        self.set_tree(params, requires_grad=requires_grad)
 
     @property
     def params(self):
@@ -402,5 +432,49 @@ class CausalLM(L.ParamTree):
         return self.apply(self.params, input_ids, positions=positions,
                           attention_mask=attention_mask)
 
-    def loss(self, *args, **kwargs):
-        raise not_ported("CausalLM.loss (training)", "A.6")
+    def head_ce(self, params, x, labels):
+        """Cross entropy from post-final-norm hidden states: the fused
+        vocab-chunked op (``fused_ce``) or the materialized-logits one."""
+        cfg = self.config
+        if cfg.fused_ce:
+            from ..ops.cross_entropy import fused_cross_entropy
+
+            if cfg.tie_embeddings:
+                emb, bias = params["wte"]["weight"], None
+            else:
+                emb = params["lm_head"]["kernel"].T
+                bias = params["lm_head"].get("bias")  # GPT-J biased head
+            return fused_cross_entropy(x.reshape(-1, cfg.d_model), emb, labels.reshape(-1),
+                                       bias, n_chunks=cfg.fused_ce_chunks,
+                                       impl=cfg.fused_ce_impl)
+        return cross_entropy_loss(self.head(params, x), labels)
+
+    def loss(self, params, batch, deterministic=True):
+        """Next-token cross entropy. batch: {input_ids, labels?,
+        attention_mask?, position_ids?}; labels default to input_ids shifted
+        left with -100 (ignored) at the last position. ``deterministic=False``
+        is a training forward, which would apply dropout: a config with
+        dropout raises (ROADMAP A.9)."""
+        cfg = self.config
+        if not deterministic and (cfg.dropout > 0 or cfg.attn_dropout > 0):
+            raise not_ported("dropout in a training forward (dropout / attn_dropout > 0)",
+                             "A.9")
+        input_ids = batch["input_ids"]
+        labels = batch.get("labels")
+        if labels is None:
+            labels = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], -100)],
+                               dim=1)
+        x = self.backbone(params, input_ids, positions=batch.get("position_ids"),
+                          attention_mask=batch.get("attention_mask"))
+        return self.head_ce(params, x, labels)
+
+
+def cross_entropy_loss(logits, labels, ignore_index=-100):
+    """Token-mean cross entropy in fp32; ``ignore_index`` labels masked out."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe_labels = torch.where(valid, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    token_ll = torch.gather(logits, -1, safe_labels[..., None].long())[..., 0]
+    nll = (logz - token_ll) * valid
+    return nll.sum() / valid.sum().clamp(min=1)

@@ -5,7 +5,8 @@ where it launches its kernel and nowhere else, so a run can show which
 kernels its main path went through.
 """
 
-LAUNCH_COUNTS = {"flash_attention_fwd": 0, "paged_flash_decode": 0}
+LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "fused_ce_forward": 0,
+                 "paged_flash_decode": 0}
 
 
 def reset_launch_counts():

@@ -1,18 +1,25 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and their plain versions.
 
 ``flash_attention_fwd`` is the port of the Pallas TPU forward kernels
 (``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_fwd_single`` and
 ``_flash_fwd``) as one hand-written CUDA kernel,
-``deepspeed_tpu_torch/csrc/flash_attention_fwd.cu``. Layout ``[b, s, h, d]``
+``deepspeed_tpu_torch/csrc/flash_attention_fwd.cu``; with ``return_lse`` it
+also returns the per-row ``lse = m + log(l)`` the backward needs.
+``flash_attention_bwd`` is the port of the TPU backward (``_flash_bwd``: the
+dQ kernels ``_dq_kernel_single``/``_dq_kernel`` and the dK/dV kernels
+``_dkv_kernel_single``/``_dkv_kernel``) as
+``deepspeed_tpu_torch/csrc/flash_attention_bwd.cu``. Layout ``[b, s, h, d]``
 in and out; k/v may carry fewer (GQA) heads than q; causal masking is aligned
 to the bottom right (query i sees key j <= i + s_kv - s_q).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it computes ``flash_attention_reference``, the plain fp32 chunked
-online-softmax math, which the tests hold against the TPU kernel and
-``chip_smoke.py`` holds the CUDA kernel against on the card.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it computes the plain version (``flash_attention_reference``,
+``flash_attention_bwd_reference``: fp32 chunked math of the same recurrence),
+which the tests hold against the TPU kernels and ``chip_smoke.py`` holds the
+CUDA kernels against on the card.
 """
 
+import ctypes
 import math
 
 import torch
@@ -47,10 +54,12 @@ def _repeat_kv(x, n_rep):
     return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
-def flash_attention_reference(q, k, v, causal=True, scale=None, block_size=512):
+def flash_attention_reference(q, k, v, causal=True, scale=None, block_size=512,
+                              return_lse=False):
     """Plain version: fp32 online softmax over kv chunks of ``block_size``
     (one chunk when it does not divide s_kv), mirroring
-    ``deepspeed_tpu/ops/flash_attention.py:_chunked_attention``."""
+    ``deepspeed_tpu/ops/flash_attention.py:_chunked_attention``. With
+    ``return_lse`` also the fp32 ``[b, h, s_q]`` row logsumexp."""
     _check_shapes(q, k, v, causal)
     b, s_q, h, d = q.shape
     s_kv = k.shape[1]
@@ -84,8 +93,11 @@ def flash_attention_reference(q, k, v, causal=True, scale=None, block_size=512):
         l = l * correction + p.sum(dim=-1)
         acc = acc * correction[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(l)
+    return out
 
 
 _UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
@@ -121,14 +133,15 @@ def _check_kernel_inputs(q, k, v):
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"flash kernel needs 16-byte aligned rows; {name} strides "
                              f"{t.stride()} at offset {t.data_ptr() % 16}")
-    if (torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        raise NotImplementedError(
-            "the flash kernel is forward-only; its backward is ROADMAP.md A.6")
 
 
-def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512):
-    """softmax(scale q k^T) v for ``[b, s, h, d]`` tensors.
+def _on_cpu(*tensors):
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return_lse=False):
+    """softmax(scale q k^T) v for ``[b, s, h, d]`` tensors (and, with
+    ``return_lse``, the fp32 ``[b, h, s_q]`` row logsumexp).
 
     CPU tensors take ``flash_attention_reference`` (kv chunks of
     ``block_size``; the kernel's tiles are fixed). CUDA tensors launch the
@@ -136,9 +149,9 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512):
     does not take: dtypes other than fp32/fp16/bf16, head_dim outside
     {64, 128}, a non-contiguous last dim or rows not 16-byte aligned."""
     _check_shapes(q, k, v, causal)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
-                                         block_size=block_size)
+                                         block_size=block_size, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got {q.device}")
     _check_kernel_inputs(q, k, v)
@@ -146,8 +159,10 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512):
     s_kv, kvh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     from ..op_builder import load_op
 
     lib = load_op("flash_attention_fwd")
@@ -157,8 +172,129 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, kvh, s_q, s_kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), int(bool(causal)), stream)
+            float(scale), int(bool(causal)), lse.data_ptr() if return_lse else None, stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
     LAUNCH_COUNTS["flash_attention_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------------
+def _bwd_sums(q, k, v, o, lse, do, causal, scale, block_size, absolute):
+    """The FA2 backward recurrence in fp32 over kv chunks of ``block_size``:
+    P = exp(scale q.k - lse) recomputed, delta = rowsum(dO * O),
+    dS = P (dP - delta) scale; dV = P^T dO, dK = dS^T Q, dQ = dS K, on q's
+    heads, then summed over each kv head's query heads (GQA). With
+    ``absolute`` the same sums of |terms| (P |dO|, |dS| |Q|, |dS| |K|), which
+    size the kernel's rounding error."""
+    b, s_q, h, d = q.shape
+    s_kv = k.shape[1]
+    n_rep = h // k.shape[2]
+    f = lambda t: t.float().transpose(1, 2)  # [b, h, s, d]
+    qf, kf, vf, dof = f(q), f(_repeat_kv(k, n_rep)), f(_repeat_kv(v, n_rep)), f(do)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [b, h, s_q]
+    # the right-hand factors of dQ, dK, dV (their magnitudes for the bound)
+    rq, rk, rdo = (qf.abs(), kf.abs(), dof.abs()) if absolute else (qf, kf, dof)
+    q_idx = torch.arange(s_q, device=q.device)[:, None] + (s_kv - s_q)
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for c0 in range(0, s_kv, min(block_size, s_kv)):
+        sl = slice(c0, min(c0 + block_size, s_kv))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, sl]) * scale
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            kv_idx = torch.arange(sl.start, sl.stop, device=q.device)[None, :]
+            p = torch.where(kv_idx <= q_idx, p, 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf[:, :, sl])
+        ds = p * (dp - delta[..., None]) * scale
+        if absolute:
+            ds = ds.abs()
+        dv[:, :, sl] = torch.einsum("bhqk,bhqd->bhkd", p, rdo)
+        dk[:, :, sl] = torch.einsum("bhqk,bhqd->bhkd", ds, rq)
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, rk[:, :, sl])
+    fold = lambda t: t.reshape(b, h // n_rep, n_rep, s_kv, d).sum(2)
+    return dq.transpose(1, 2), fold(dk).transpose(1, 2), fold(dv).transpose(1, 2)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True, scale=None,
+                                  block_size=512):
+    """Plain version of the backward: ``_bwd_sums`` in fp32, each gradient
+    rounded once to its input's dtype. ``lse`` is the forward's fp32
+    ``[b, h, s_q]``; returns (dq, dk, dv) in q's, k's and v's layouts."""
+    _check_shapes(q, k, v, causal)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    dq, dk, dv = _bwd_sums(q, k, v, o, lse.float(), do, causal, scale, block_size, False)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_rounding_bound(q, k, v, o, lse, do, refs, causal=True, scale=None):
+    """Per-element bounds on |kernel - plain| for (dq, dk, dv) that rounding
+    to q's 16-bit dtype explains, or None for fp32 inputs. The kernel rounds
+    P to the dtype before P^T dO (at most u sum_i P |dO|) and dS before dS^T Q
+    and dS K (u sum |dS| |Q|, u sum |dS| |K|); both sides round each output
+    (u |g| each, ``refs`` being the plain version's outputs)."""
+    u = _UNIT_ROUNDOFF.get(q.dtype)
+    if u is None:
+        return None
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    sums = _bwd_sums(q, k, v, o, lse.float(), do, causal, scale, 512, True)
+    return tuple(u * (s + 2 * r.float().abs()) for s, r in zip(sums, refs))
+
+
+def _check_bwd_inputs(q, k, v, o, lse, do):
+    _check_kernel_inputs(q, k, v)
+    b, s_q, h, d = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash backward: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"does not match q {tuple(q.shape)} {q.dtype}")
+    _check_kernel_inputs(o, do, do)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s_q)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash backward needs a contiguous fp32 lse of shape {(b, h, s_q)} "
+                         f"on {q.device}; got {lse.dtype} {tuple(lse.shape)}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None, block_size=512):
+    """(dq, dk, dv) of ``o = flash_attention_fwd(q, k, v)`` for the upstream
+    gradient ``do``, from the forward's ``lse``; dk and dv have k's (kv) heads.
+
+    CPU tensors take ``flash_attention_bwd_reference``. CUDA tensors launch
+    the kernel (a delta pass, the dQ kernel and the dK/dV kernel, counted as
+    one launch) on the current stream, or raise on what it does not take:
+    the forward's restrictions, o/do unlike q, or a missing lse."""
+    _check_shapes(q, k, v, causal)
+    if lse is None:
+        raise ValueError("flash backward needs the forward's lse (flash_attention_fwd(..., "
+                         "return_lse=True))")
+    if _on_cpu(q, k, v, o, do, lse):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                             block_size=block_size)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors, got {q.device}")
+    _check_bwd_inputs(q, k, v, o, lse, do)
+    b, s_q, h, d = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    from ..op_builder import load_op
+
+    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    lib = load_op("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ds_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b, h, kvh, s_q, s_kv, d,
+            (ctypes.c_longlong * 24)(*strides), float(scale), int(bool(causal)), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+    LAUNCH_COUNTS["flash_attention_bwd"] += 1
+    return dq, dk, dv

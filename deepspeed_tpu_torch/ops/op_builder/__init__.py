@@ -2,9 +2,11 @@
 
 import threading
 
-from .builder import CUDAOpBuilder, FlashAttentionBuilder, PagedFlashDecodeBuilder  # noqa: F401
+from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FlashAttentionBwdBuilder,  # noqa: F401
+                      FusedCEForwardBuilder, PagedFlashDecodeBuilder)
 
-ALL_OPS = {b.NAME: b for b in (FlashAttentionBuilder, PagedFlashDecodeBuilder)}
+ALL_OPS = {b.NAME: b for b in (FlashAttentionBuilder, FlashAttentionBwdBuilder,
+                               FusedCEForwardBuilder, PagedFlashDecodeBuilder)}
 
 _LOADED = {}
 _LOCK = threading.Lock()

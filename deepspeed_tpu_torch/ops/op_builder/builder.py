@@ -120,7 +120,34 @@ class FlashAttentionBuilder(CUDAOpBuilder):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = lib.ds_flash_attention_fwd
         fn.argtypes = ([p] * 4 + [i] * 7 + [ll] * 12
-                       + [ctypes.c_float, i, p])
+                       + [ctypes.c_float, i, p, p])
+        fn.restype = ctypes.c_int
+
+
+class FlashAttentionBwdBuilder(CUDAOpBuilder):
+    """``csrc/flash_attention_bwd.cu``: the flash-attention backward (delta,
+    dQ and dK/dV kernels, one call)."""
+
+    NAME = "flash_attention_bwd"
+    SOURCES = ("flash_attention_bwd.cu",)
+
+    def bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = lib.ds_flash_attention_bwd
+        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+
+
+class FusedCEForwardBuilder(CUDAOpBuilder):
+    """``csrc/fused_ce_fwd.cu``: the streaming LM-head cross-entropy forward."""
+
+    NAME = "fused_ce_forward"
+    SOURCES = ("fused_ce_fwd.cu",)
+
+    def bind(self, lib):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = lib.ds_fused_ce_fwd
+        fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 2 + [p]
         fn.restype = ctypes.c_int
 
 

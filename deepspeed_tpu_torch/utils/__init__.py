@@ -8,8 +8,8 @@ ROADMAP_ITEMS = {
     "A.3": "serving fleet and observability: router, telemetry, health, monitors",
     "A.4": "weight-only quantization: quantizer, quantized_matmul",
     "A.5": "checkpoints and importers: load_checkpoint, module_inject",
-    "A.6": "training main path: loss, fused cross-entropy, flash backward, engine",
     "A.7": "distribution: tensor/expert/pipeline/sequence parallelism, ZeRO, MoE",
+    "A.8": "offload: ZeRO-Offload and ZeRO-Infinity to host memory and NVMe",
     "A.9": "the rest: encoders, banded local attention, block-sparse, audits",
 }
 

@@ -178,3 +178,206 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         kc = torch.empty(args[3].numel() + 1, dtype=args[3].dtype, device=cuda)[1:]
         paged_flash_decode(*args[:3], kc.view(args[3].shape), *args[4:])
+
+
+# -- flash backward and the forward's lse ------------------------------------------
+
+def _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, device, seed=0):
+    """q, k, v, the plain forward's o (rounded to dtype) and fp32 lse, and dO."""
+    q, k, v = _qkv(b, s_q, s_kv, h, kvh, d, dtype, device, seed=seed)
+    o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+    do = torch.tensor(np.random.RandomState(seed + 1).randn(b, s_q, h, d),
+                      dtype=torch.float32).to(device, dtype)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_forward_lse_matches_plain(cuda, dtype):
+    """The kernel's lse against the plain version's: fp32 rows that differ
+    only in summation order, within 1e-5 + 1e-5 |lse|."""
+    q, k, v = _qkv(2, 200, 200, 4, 2, 64, dtype, cuda)
+    out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=True, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 200)
+    assert ((lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
+    _assert_matches_plain(out, q, k, v, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 2, 2, 64, True),       # one tile
+    (2, 200, 200, 4, 4, 128, True),    # ragged tail, several tiles
+    (1, 77, 300, 4, 2, 64, True),      # s_q < s_kv, GQA
+    (1, 130, 90, 4, 1, 128, False),    # non-causal, s_q > s_kv, MQA
+], ids=["one-tile", "ragged", "sq<skv-gqa", "noncausal-mqa"])
+def test_bwd_kernel_matches_plain(cuda, dtype, shape):
+    """bf16/fp16: within 1e-5 + ``bwd_rounding_bound`` (the kernel rounds P
+    and dS to the input type, both sides round the outputs). fp32:
+    summation order only, 2e-5 + 2e-5 |plain|."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
+
+    b, s_q, s_kv, h, kvh, d, causal = shape
+    args = _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, cuda)
+    before = LAUNCH_COUNTS["flash_attention_bwd"]
+    grads = flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention_bwd"] == before + 1
+    refs = flash_attention_bwd_reference(*args, causal=causal)
+    bounds = bwd_rounding_bound(*args, refs, causal=causal)
+    for name, g, r, i in zip(("dq", "dk", "dv"), grads, refs, range(3)):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        diff = (g.float() - r.float()).abs()
+        limit = (2e-5 + 2e-5 * r.float().abs()) if bounds is None else 1e-5 + bounds[i]
+        worst = (diff / limit).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd
+
+    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 64, True, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, None, do)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), do)
+    with pytest.raises(ValueError, match="does not match"):
+        flash_attention_bwd(q, k, v, o, lse, do.float())
+    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 32, True, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q, k, v, o, lse, do)
+
+
+def test_flash_autograd_reaches_both_kernels(cuda):
+    """Under autograd the dispatch saves the forward's lse and its backward
+    is the bwd kernel: one launch of each, grads equal to the wrapper's."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 128, 128, 4, 2, 64, torch.bfloat16, cuda))
+    do = torch.randn(2, 128, 4, 64, device=cuda).to(torch.bfloat16)
+    before = dict(LAUNCH_COUNTS)
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert LAUNCH_COUNTS["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    o, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(), causal=True,
+                                 return_lse=True)
+    for g, w in zip((q.grad, k.grad, v.grad),
+                    flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse, do)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# -- fused cross-entropy forward ---------------------------------------------------
+
+def _ce_inputs(tokens, d, vocab, dtype, device, bias=False, seed=0):
+    r = np.random.RandomState(seed)
+    x = torch.tensor(r.randn(tokens, d), dtype=torch.float32).to(device, dtype)
+    emb = torch.tensor(0.02 * r.randn(vocab, d), dtype=torch.float32).to(device)
+    labels = torch.tensor(r.randint(0, vocab, tokens), device=device)
+    b = torch.tensor(r.randn(vocab), dtype=torch.float32, device=device) if bias else None
+    return x, emb, labels, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", [
+    (256, 128, 1024, False),    # whole tiles
+    (300, 64, 1031, True),      # ragged tokens, a prime vocab's tail, a head bias
+    (64, 1024, 50257, False),   # GPT-2's vocab at d 1024
+], ids=["tiles", "ragged-bias", "gpt2-vocab"])
+def test_ce_kernel_matches_plain(cuda, dtype, shape):
+    """fp32 outputs on both sides; 16-bit inputs make exact fp32 products,
+    so kernel and plain differ in summation order only: within 1e-5 +
+    ``accumulation_bound``. fp32 inputs: 2e-5 + 2e-5 |plain|."""
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import (
+        accumulation_bound, fused_ce_forward, fused_ce_forward_reference)
+
+    tokens, d, vocab, bias = shape
+    x, emb, labels, b = _ce_inputs(tokens, d, vocab, dtype, cuda, bias=bias)
+    before = LAUNCH_COUNTS["fused_ce_forward"]
+    lse, lab = fused_ce_forward(x, emb, labels, b)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_ce_forward"] == before + 1
+    ref_lse, ref_lab = fused_ce_forward_reference(x, emb, labels, b)
+    for name, got, ref in (("lse", lse, ref_lse), ("label_logit", lab, ref_lab)):
+        assert got.dtype == torch.float32 and got.shape == (tokens,)
+        if dtype == torch.float32:
+            limit = 2e-5 + 2e-5 * ref.abs()
+        else:
+            limit = 1e-5 + accumulation_bound(x, emb, ref_lse)
+        worst = ((got - ref).abs() / limit).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {(got - ref).abs().max().item()}"
+
+
+def test_ce_kernel_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import fused_ce_forward
+
+    x, emb, labels, _ = _ce_inputs(64, 72, 256, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fused_ce_forward(x[:, :36], emb[:, :36], labels)     # 72 bytes a row
+    x, emb, labels, _ = _ce_inputs(64, 64, 256, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        fused_ce_forward(x.double(), emb, labels)
+    with pytest.raises(TypeError, match="bias"):
+        fused_ce_forward(x, emb, labels, torch.zeros(256, device=cuda).half())
+    with pytest.raises(ValueError, match="aligned"):
+        fused_ce_forward(x[:, 1:57], emb[:, 1:57], labels)
+
+
+@pytest.mark.parametrize("head", ["tied", "untied"])
+def test_fused_cross_entropy_on_the_card_matches_the_cpu(cuda, head):
+    """``fused_cross_entropy(impl="pallas")`` with bf16 x and an fp32 master
+    embedding: the card (the CE kernel, then fp32-output cuBLAS GEMMs in the
+    chunked backward) against the CPU (the plain forward, fp32 GEMMs of the
+    same bf16 values). The loss within 1e-5 relative; dx in bf16 within one
+    bf16 rounding (rtol 1e-2, atol 1e-6); dE within 1e-3 relative of its
+    largest element (the dlogits rounded to bf16 from fp32 values summed in
+    another order). An untied head hands in emb as the transposed view of
+    its [d, V] kernel."""
+    from deepspeed_tpu_torch.ops.cross_entropy import fused_cross_entropy
+
+    x, emb, labels, _ = _ce_inputs(512, 128, 1031, torch.float32, "cpu", seed=3)
+    labels[:17] = -100
+    out = {}
+    for dev in ("cpu", cuda):
+        xt = x.to(dev, torch.bfloat16).requires_grad_()
+        et = (emb.T.contiguous() if head == "untied" else emb).to(dev).detach().requires_grad_()
+        before = LAUNCH_COUNTS["fused_ce_forward"]
+        loss = fused_cross_entropy(xt, et.T if head == "untied" else et, labels.to(dev),
+                                   impl="pallas")
+        loss.backward()
+        assert LAUNCH_COUNTS["fused_ce_forward"] == before + (dev != "cpu")
+        de = et.grad.T if head == "untied" else et.grad
+        out[str(dev)] = (loss.item(), xt.grad.float().cpu(), de.cpu())
+    (l_cpu, dx_cpu, de_cpu), (l_card, dx_card, de_card) = out["cpu"], out["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    torch.testing.assert_close(dx_card, dx_cpu, rtol=1e-2, atol=1e-6)
+    assert (de_card - de_cpu).abs().max() <= 1e-3 * de_cpu.abs().max()
+
+
+def test_training_engine_on_the_card(cuda):
+    """``initialize`` on the card (no ``device``) trains a small GPT-2 with
+    head_dim 64 in bf16 through both flash kernels and the CE kernel:
+    exactly n_layers + n_layers + 1 launches per step, finite falling losses
+    on a fixed batch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_config
+
+    cfg = gpt2_config("tiny", vocab_size=1000, attention_impl="flash", fused_ce_impl="pallas")
+    engine, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config={
+        "train_batch_size": 4, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}}})
+    assert engine.device.type == "cuda" and cfg.head_dim == 64
+    batch = {"input_ids": np.random.RandomState(0).randint(0, 1000, (4, 128))}
+    losses = []
+    for _ in range(4):
+        before = dict(LAUNCH_COUNTS)
+        losses.append(engine.train_batch(batch=batch).item())
+        assert {k: LAUNCH_COUNTS[k] - before[k] for k in
+                ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward")} == {
+            "flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "fused_ce_forward": 1}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
