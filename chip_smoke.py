@@ -11,12 +11,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
      paths' shapes and a few more, with its time, the plain version's time,
      the least time the card could take (the bound) and one PyTorch library
      call computing the same function as a yardstick (never used by the port);
+     the quantized matmul (int8, int4) at Llama-7B's linears for every token
+     count phase 7 runs, and the paged decode on an int8 pool;
   3. the card against the CPU port: Llama-7B width with 2 layers in fp32, the
      same seeded weights on both; prefill logits and 8 greedy tokens, then
      ``serve()`` of a few staggered requests: the card's ``fused`` streams
      against the CPU port's ``gather`` streams and the card's ``generate()``;
      then training at GPT-2-medium width with 2 layers in fp32: one step's
-     loss and grads, and the losses of 3 ``train_batch`` steps;
+     loss and grads, and the losses of 3 ``train_batch`` steps; then int8
+     and int4 weights quantized on the card against the CPU port on the same
+     quantized tree, and one decode step on an int8 pool (fused on the card
+     against gather on the card and on the CPU);
   4. the generate path: ``init_inference`` on full Llama-7B (32 layers, bf16,
      random weights from a seed) answering requests through ``generate()``,
      with every kernel's launch count read around it;
@@ -29,7 +34,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      shape and config (seq 1024, batch 12, bf16, AdamW, ZeRO 0, flash
      attention, the CE forward kernel), 2 warm-up and 8 timed ``train_batch``
      steps on one fixed batch, with the launch counts read around every step
-     and one more step under the profiler.
+     and one more step under the profiler;
+  7. the quantized serving path: ``init_inference`` on full Llama-7B with
+     ``quant`` int8 (group 64) and an int8 paged pool with the ``fused``
+     backend, ``generate()`` over a subset of phase 4's requests and
+     ``serve()`` of phase 5's traffic as phase 5 runs it; then ``quant`` int4
+     with ``generate()`` over the same requests. Each forward launches 7
+     quantized matmuls per layer, each decode step one int8 paged decode per
+     layer and none of the 16-bit pool's; a quantized matmul shape that
+     phase 2 did not check fails the run.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,6 +85,12 @@ SERVE_N, SERVE_GAP = 16, 0.05
 SHARED, SHARED_PREFIX = (2, 6), 512
 PROFILED_STEPS = 16        # decode steps of run 2 under the profiler
 SAMPLED_REQ = (5, {"temperature": 0.8, "top_k": 40, "seed": 7})
+
+# phase 7: the quantized engines answer this subset of phase 4's requests
+# (the shortest, the longest single and the batch) and phase 5's traffic;
+# Llama-7B's linear shapes (k, n): q/k/v/o, gate/up, down
+QUANT_REQUESTS = ("single-57", "single-1700", "batch4x512")
+LLAMA_LINEARS = ((4096, 4096), (4096, 11008), (11008, 4096))
 
 # phase 6: bench.py's training shape and engine config (bench.py:264-311)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB = 12, 1024, 50304
@@ -507,14 +526,18 @@ def phase_main_path(torch, checked_shapes):
     return eng, launches, requests, peak, profile
 
 
-def phase_serving(torch, eng, checked_shapes):
+def phase_serving(torch, eng, checked_shapes, paged_kernel="paged_flash_decode",
+                  qmm_kernel=None):
     """Phase 5: ``serve()`` on the phase-4 engine (its config's serving
     block: 8 slots, a paged pool of 2048-token windows, the fused backend)
     under the wall clock. Run 1 serves the traffic and nothing else: its
     launch counts, metrics and decode step times are the ones reported. Run 2
     (a fresh slot pool) must repeat every stream; it also takes one
     fused-against-gather decode step when all 8 slots are busy, and profiles
-    the first 16 decode steps after the last admission."""
+    the first 16 decode steps after the last admission. Phase 7 runs it on
+    its quantized engine: an int8 pool (``paged_kernel``
+    "paged_flash_decode_int8", and then no launch of the 16-bit pool's
+    kernel) and 7 quantized matmuls per layer and forward (``qmm_kernel``)."""
     from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
     from deepspeed_tpu_torch.models.decoding import forward_with_paged_cache
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
@@ -573,15 +596,22 @@ def phase_serving(torch, eng, checked_shapes):
     hits = snap["kv_pool"]["prefix_hit_requests"]
     if snap["kv_pool"]["attention_backend"] != "fused" or hits < 1:
         raise AssertionError(f"kv_pool {snap['kv_pool']}: not fused, or no prefix hit")
-    if launches["paged_flash_decode"] != n_layers * dispatches:
-        raise AssertionError(f"paged launches {launches['paged_flash_decode']} != {n_layers} x "
+    if launches[paged_kernel] != n_layers * dispatches:
+        raise AssertionError(f"{paged_kernel} launches {launches[paged_kernel]} != {n_layers} x "
                              f"{dispatches} decode steps")
+    if paged_kernel != "paged_flash_decode" and launches["paged_flash_decode"]:
+        raise AssertionError(f"{launches['paged_flash_decode']} launches of the 16-bit pool's "
+                             f"kernel on an int8 pool")
+    if qmm_kernel is not None and launches[qmm_kernel] != 7 * n_layers * (dispatches + SERVE_N):
+        raise AssertionError(f"{qmm_kernel} launches {launches[qmm_kernel]} != 7 x {n_layers} x "
+                             f"({dispatches} decode steps + {SERVE_N} prefills)")
     if launches["flash_attention_fwd"] != n_layers * (SERVE_N - hits):
         raise AssertionError(f"flash launches {launches['flash_attention_fwd']} != {n_layers} x "
                              f"{SERVE_N - hits} full prefills")
     if reqs1[SHARED[1]].prefix_saved_tokens != SHARED_PREFIX:
         raise AssertionError(f"the shared prefix saved {reqs1[SHARED[1]].prefix_saved_tokens}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    pool_bytes = sum(t.numel() * t.element_size() for t in sv._pool().values())
     sv.destroy()
 
     check, prof_box = {}, {}
@@ -595,7 +625,7 @@ def phase_serving(torch, eng, checked_shapes):
         st, bs = sv._state, sv.pool_mgr.block_size
         with torch.no_grad():
             logits = {b: forward_with_paged_cache(
-                eng.module, eng.params, st["tok"][:, None], {"k": st["k"], "v": st["v"]},
+                eng.module, eng.params, st["tok"][:, None], sv._pool(),
                 st["table"], st["pos"], bs, attention_backend=b)[:, 0].float()
                 for b in ("fused", "gather")}
         delta = (logits["fused"] - logits["gather"]).abs().max().item()
@@ -656,7 +686,7 @@ def phase_serving(torch, eng, checked_shapes):
            "tpot_ms": snap["tpot_ms"], "decode_steps": dispatches,
            "decode_ms_per_step_mean": mean(step_ms(steps1)),
            "decode_ms_per_step_after_last_admission": mean(step_ms(steps1, True)),
-           "prefix_hit_requests": hits, "kv_pool": snap["kv_pool"],
+           "prefix_hit_requests": hits, "kv_pool": snap["kv_pool"], "pool_bytes": pool_bytes,
            "launches": launches, "peak_gib": peak, "fused_vs_gather": check,
            "profile": profile}
     log(f"  run 1: {SERVE_N} requests in {wall1:.2f} s ({wall2:.2f} s for run 2); tokens/s "
@@ -665,7 +695,8 @@ def phase_serving(torch, eng, checked_shapes):
         f"{snap['tpot_ms']['p99']:.2f}; {dispatches} decode steps at "
         f"{out['decode_ms_per_step_mean']:.2f} ms mean; peak device memory {peak:.2f} GiB")
     log(f"  launches on the serving path: {launches} ({n_layers} x {dispatches} decode steps, "
-        f"{n_layers} x {SERVE_N - hits} full prefills; {hits} prefix hit)")
+        f"{n_layers} x {SERVE_N - hits} full prefills; {hits} prefix hit); pool "
+        f"{pool_bytes / 2**30:.3f} GiB")
     return out
 
 
@@ -1080,6 +1111,404 @@ def profile_train_step(torch, engine, batch, wall_ms):
     return out
 
 
+def qmm_main_ms():
+    """Every token count m the quantized linears of phase 7 run: the decode
+    batches (1 and 4 rows of ``generate()``, the 8 serving slots) and every
+    prefill (batch x bucket of phase 4's requests, phase 5's prompt buckets
+    and its shared-prefix suffix bucket)."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
+
+    cfg = DeepSpeedInferenceConfig.from_dict(MAIN_CONFIG)
+    ms = {b * s for b, s in main_path_prefill_shapes()}
+    ms |= {b for name, (b, _) in REQUESTS if name in QUANT_REQUESTS}
+    ms.add(MAIN_CONFIG["serving"]["n_slots"])
+    suffix = SERVE_PROMPTS[SHARED[1] % len(SERVE_PROMPTS)] - SHARED_PREFIX
+    ms.add(bucket_prompt_len(cfg, suffix, cfg.serving.max_len - SHARED_PREFIX))
+    return sorted(ms)
+
+
+def phase_qmm_kernels(torch, main_ms):
+    """``quantized_matmul`` (int8 and int4) against its plain version: bf16 at
+    Llama-7B's linears (k, n) for every m phase 7 runs, group 64; fp16 and
+    fp32 at (4096, 11008) m 8; a ragged case (m not a multiple of 16, n not
+    of 128, an odd group). Each case has the kernel's time, the plain
+    version's, the bound and ``torch.matmul`` on the weight dequantized
+    beforehand (the unquantized model's GEMM) as the yardstick."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (dequantized_weight,
+                                                               quantized_matmul,
+                                                               quantized_matmul_reference,
+                                                               rounding_bound)
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, quantize_per_channel
+
+    cases = [(m, k, n, 64, torch.bfloat16) for k, n in LLAMA_LINEARS for m in main_ms]
+    cases += [(8, 4096, 11008, 64, torch.float16), (8, 4096, 11008, 64, torch.float32),
+              (37, 4094, 4000, 23, torch.bfloat16)]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    weights = {}
+    results = []
+    for bits in (8, 4):
+        quantized = {}
+        for m, k, n, group, dtype in cases:
+            if (k, n) not in weights:
+                weights[(k, n)] = (torch.randn(k, n, generator=gen, device="cuda")
+                                   * 0.02).to(torch.bfloat16)
+            if (k, n, group) not in quantized:
+                q, s32 = quantize_per_channel(weights[(k, n)], bits=bits, group_size=group)
+                quantized[(k, n, group)] = (pack_int4(q) if bits == 4 else q, s32)
+            q, scale32 = quantized[(k, n, group)]
+            scale = scale32.to(dtype)     # the model hands the scale over in x's dtype
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            kern = lambda: quantized_matmul(x, q, scale, bits=bits)
+            plain = lambda: quantized_matmul_reference(x, q, scale, bits=bits)
+            y, ref = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (y.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                tol, limit = "2e-05 + 2e-05|plain|", TOL_FP32[0] + TOL_FP32[1] * ref.float().abs()
+            else:
+                tol = "1e-05 + 2u|plain| + 2k 2^-24 |x||w|"
+                limit = rounding_bound(x, q, scale, ref, bits=bits)
+            name = f"qmm int{bits} m{m} k{k} n{n} g{group} {dtype}"
+            use = check_limit(name, diff, limit, tol)
+            w_deq = dequantized_weight(q, scale, bits).to(dtype)
+            kernel_ms = time_ms(kern, 20)
+            plain_ms = time_ms(plain, 3)
+            library_ms = time_ms(lambda: torch.matmul(x, w_deq), 20)
+            # the bound: x, q, the scales and y moved once; 2 m n k operations
+            n_bytes = (x.numel() * x.element_size() + q.numel() + scale.numel()
+                       * scale.element_size() + m * n * x.element_size())
+            flops = 2 * m * n * k
+            t_bytes = n_bytes / H100_BYTES
+            t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+            r = dict(case=f"m{m}-k{k}-n{n}-g{group}", bits=bits, dtype=str(dtype).split(".")[1],
+                     m=m, k=k, n=n, group=group, main_path=(k, n) in LLAMA_LINEARS
+                     and dtype == torch.bfloat16 and group == 64,
+                     max_abs_err=diff.max().item(), tolerance=tol, limit_use=use,
+                     ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=max(t_bytes, t_ops) * 1e3,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=n_bytes,
+                     flops=flops, gb_per_s=n_bytes / kernel_ms / 1e6,
+                     tflops=flops / kernel_ms / 1e9)
+            log(f"  {name:44s} err {r['max_abs_err']:.2e} ({use:.2f} of the limit)  kernel "
+                f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  matmul {library_ms:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['gb_per_s']:.0f} GB/s "
+                f"{r['tflops']:.1f} TFLOP/s")
+            results.append(r)
+            del x, y, ref, diff, limit, w_deq
+    return results
+
+
+def phase_paged_int8_kernels(torch, F):
+    """``paged_flash_decode`` on an int8 pool against its plain version at
+    phase 5's decode geometry, plus a GQA case; the yardstick is the gather
+    + masked SDPA on the pool dequantized beforehand."""
+    from deepspeed_tpu_torch.comm.collectives import dequantize_blockwise, quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import (kernel_splits,
+                                                              paged_flash_decode,
+                                                              paged_flash_decode_reference,
+                                                              rounding_bound)
+
+    serving = MAIN_CONFIG["serving"]
+    s_dim, bs = serving["n_slots"], serving["kv_pool"]["block_size"]
+    nb_cols = serving["max_len"] // bs
+    cursors = decode_cursors()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, n_heads, kvh in (("main", 32, 32), ("gqa-32/8", 32, 8)):
+            q, k_new, v_new, kc, vc, table, pos = paged_inputs(
+                torch, gen, s_dim, n_heads, kvh, 128, bs, nb_cols, cursors, torch.float32)
+            q, k_new, v_new = q.to(dtype), k_new.to(dtype), v_new.to(dtype)
+            kq, ks = quantize_blockwise(kc, block=128)
+            vq, vs = quantize_blockwise(vc, block=128)
+            del kc, vc
+            args = (q, k_new, v_new, kq, vq, table, pos)
+            scales = dict(k_scale=ks, v_scale=vs)
+            splits = kernel_splits(s_dim, kvh, nb_cols, "cuda")
+            kern = lambda: paged_flash_decode(*args, **scales, kv_splits=splits)
+            plain = lambda: paged_flash_decode_reference(*args, **scales, kv_splits=splits)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            if dtype == torch.float32:
+                tol, limit = "2e-05 + 2e-05|plain|", TOL_FP32[0] + TOL_FP32[1] * ref.float().abs()
+            else:
+                tol = f"{ATOL_16:g} + rounding bound (on the dequantized pool)"
+                limit = ATOL_16 + rounding_bound(*args, ref, **scales)
+            use = check_limit(f"paged int8 {name} {dtype}", diff, limit, tol)
+            if not bool(torch.isfinite(out).all()) or out.float().abs().max().item() > 100:
+                raise AssertionError(f"paged int8 {name}: the garbage block leaked in")
+            kd_all = dequantize_blockwise(kq, ks, dtype)
+            vd_all = dequantize_blockwise(vq, vs, dtype)
+            t_len = nb_cols * bs
+            rows = torch.arange(s_dim, device="cuda")
+            at = torch.arange(t_len, device="cuda")
+            mask = (at[None, :] <= pos.long()[:, None])[:, None, None, :]
+
+            def lib():
+                kd = kd_all[table.long()].reshape(s_dim, t_len, kvh, 128)
+                vd = vd_all[table.long()].reshape(s_dim, t_len, kvh, 128)
+                kd[rows, pos.long()] = k_new
+                vd[rows, pos.long()] = v_new
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=kvh != n_heads)
+
+            lib_err = (lib()[:, :, 0].float() - ref.float()).abs().max().item()
+            kernel_ms = time_ms(kern, 20)
+            plain_ms = time_ms(plain, 5)
+            library_ms = time_ms(lib, 20)
+            # the bound: the valid int8 K/V rows with their fp32 scales, q, the
+            # fresh rows, the out, the table and cursors moved once; and
+            # 4 * n_heads * dh operations per attended position
+            attended = sum(cursors) + s_dim
+            n_bytes = (2 * sum(cursors) * kvh * (128 + 4)
+                       + (2 * s_dim * n_heads * 128 + 2 * s_dim * kvh * 128) * q.element_size()
+                       + 4 * (table.numel() + s_dim))
+            flops = 4 * n_heads * 128 * attended
+            t_bytes = n_bytes / H100_BYTES
+            t_ops = flops / (H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS)
+            r = dict(case=name, dtype=str(dtype).split(".")[1], slots=s_dim, n_heads=n_heads,
+                     kv_heads=kvh, head_dim=128, block_size=bs, window=t_len, cursors=cursors,
+                     splits=splits, main_path=name == "main", max_abs_err=diff.max().item(),
+                     tolerance=tol, limit_use=use, library_max_abs_err=lib_err, ms=kernel_ms,
+                     plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=max(t_bytes, t_ops) * 1e3,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=n_bytes,
+                     flops=flops, gb_per_s=n_bytes / kernel_ms / 1e6)
+            log(f"  paged int8 {name:9s} {r['dtype']:8s} splits {splits} err "
+                f"{r['max_abs_err']:.2e} ({use:.2f} of the limit)  kernel {kernel_ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  gather+sdpa {library_ms:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['gb_per_s']:.0f} GB/s")
+            results.append(r)
+            del args, scales, q, kq, vq, ks, vs, kd_all, vd_all, out, ref, diff, limit, mask
+    return results
+
+
+def phase_quant_card_vs_cpu(torch):
+    """Llama-7B width, 2 layers, fp32: int8 and int4 weights quantized on the
+    card, the same quantized tree on the CPU port: prefill logits and 8
+    greedy tokens; then one decode step on an int8 pool, the card's fused
+    step against its gather step and the CPU port's gather step."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, InferenceEngine
+    from deepspeed_tpu_torch.models import CausalLM, llama_config
+    from deepspeed_tpu_torch.models import decoding as dec
+    from deepspeed_tpu_torch.models.layers import tree_map
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+
+    out = {}
+    ids = torch.tensor(np.random.RandomState(1).randint(0, 32000, (2, 100)))
+    padded = torch.nn.functional.pad(ids, (0, 28))  # the 128 prompt bucket
+    for bits in (8, 4):
+        config = {"dtype": "float32", "max_tokens": 256, "seed": 1}
+        card = deepspeed_tpu_torch.init_inference(
+            CausalLM(llama_config("7b", n_layers=2)),
+            {**config, "quant": {"enabled": True, "bits": bits, "group_size": 64}})
+        cpu = InferenceEngine(CausalLM(llama_config("7b", n_layers=2)),
+                              DeepSpeedInferenceConfig.from_dict(config), device="cpu",
+                              model_parameters=tree_map(lambda t: t.detach().cpu(), card.params))
+        key = "kernel_q4" if bits == 4 else "kernel_q"
+        if key not in cpu.params["blocks"]["mlp"]["up"]:
+            raise AssertionError(f"int{bits}: the CPU port did not receive the quantized tree")
+        logits, caches = {}, {}
+        before = LAUNCH_COUNTS[f"quantized_matmul_int{bits}"]
+        for name, eng in (("card", card), ("cpu", cpu)):
+            with torch.inference_mode():
+                cache = dec.init_cache(eng.module.config, 2, 136, torch.float32,
+                                       device=eng.device)
+                logits[name] = dec.forward_with_cache(eng.module, eng.params,
+                                                      padded.to(eng.device), cache, 0, 136,
+                                                      prefill=True).cpu()
+                caches[name] = cache
+        if LAUNCH_COUNTS[f"quantized_matmul_int{bits}"] - before != 7 * 2:
+            raise AssertionError(f"int{bits}: the card's prefill did not launch 14 "
+                                 f"quantized matmuls")
+        err = (logits["card"] - logits["cpu"]).abs().max().item()
+        scale = logits["cpu"].abs().max().item()
+        if not err <= 2e-4 * max(1.0, scale):
+            raise AssertionError(f"int{bits} card vs CPU prefill logits: max abs err {err} "
+                                 f"(|logits| {scale})")
+        toks = {name: eng.generate(ids[:1].numpy(), max_new_tokens=8).cpu()
+                for name, eng in (("card", card), ("cpu", cpu))}
+        if not torch.equal(toks["card"], toks["cpu"]):
+            raise AssertionError(f"int{bits} greedy streams differ: card "
+                                 f"{toks['card'][0, 100:].tolist()} cpu "
+                                 f"{toks['cpu'][0, 100:].tolist()}")
+        r = {"prefill_logits_max_abs_err": err, "logits_abs_max": scale,
+             "greedy_tokens": toks["card"][0, 100:].tolist()}
+        log(f"  int{bits} weights: prefill logits max abs err {err:.3e} (|logits| max "
+            f"{scale:.2f}); 8 greedy tokens equal: {r['greedy_tokens']}")
+        if bits == 8:
+            # one decode step on the same int8 pool on each side: the CPU
+            # port's prefill quantized into it, copied to the card (pools
+            # quantized from two prefills that differ in their last bits can
+            # differ by one int8 step, which the comparison would then see)
+            pool0 = dec.init_paged_cache(cpu.module.config, 17, 16, torch.float32, "int8")
+            for s in range(2):
+                dec.insert_block_kv(pool0, {k: v[:, s:s + 1] for k, v in caches["cpu"].items()},
+                                    list(range(1 + 8 * s, 9 + 8 * s)), 0, 16)
+            step = {}
+            for name, eng, backend in (("card-fused", card, "fused"),
+                                       ("card-gather", card, "gather"),
+                                       ("cpu-gather", cpu, "gather")):
+                dev = eng.device
+                pool = {k: v.to(dev) for k, v in pool0.items()}
+                table = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(2, 8)
+                pos = torch.tensor([100, 90], dtype=torch.int32, device=dev)
+                tok = torch.tensor([[7], [11]], device=dev)
+                before = LAUNCH_COUNTS["paged_flash_decode_int8"]
+                with torch.inference_mode():
+                    step[name] = dec.forward_with_paged_cache(
+                        eng.module, eng.params, tok, pool, table, pos, 16,
+                        attention_backend=backend)[:, 0].float().cpu()
+                launched = LAUNCH_COUNTS["paged_flash_decode_int8"] - before
+                if launched != (2 if name == "card-fused" else 0):
+                    raise AssertionError(f"{name}: {launched} int8 paged kernel launches")
+            scale = step["cpu-gather"].abs().max().item()
+            errs = {k: (step["card-fused"] - step[k]).abs().max().item()
+                    for k in ("card-gather", "cpu-gather")}
+            # JAX's pin between the int8 fused and gather paths, 2e-4, on
+            # logits of unit scale
+            for k, e in errs.items():
+                if not e <= 2e-4 * max(1.0, scale):
+                    raise AssertionError(f"int8 pool decode step: fused vs {k} max abs err {e}")
+            r["int8_pool_step"] = {"fused_vs_card_gather": errs["card-gather"],
+                                   "fused_vs_cpu_gather": errs["cpu-gather"],
+                                   "logits_abs_max": scale}
+            log(f"  int8 pool, one decode step: card fused vs card gather "
+                f"{errs['card-gather']:.3e}, vs CPU gather {errs['cpu-gather']:.3e} "
+                f"(|logits| max {scale:.2f})")
+        out[f"int{bits}"] = r
+        card.destroy()
+        cpu.destroy()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
+    """Phase 7: the quantized serving path at full Llama-7B, bf16. (a) int8
+    weights (group 64) on an int8 paged pool with the fused backend:
+    ``generate()`` over phase 4's requests in ``QUANT_REQUESTS`` and
+    ``serve()`` of phase 5's traffic (run 1 measured, run 2 with a fused-vs-
+    gather step and a profiled stretch); (b) int4 weights, ``generate()``
+    over the same requests. Every quantized matmul shape must have been held
+    against the plain version in phase 2, and each forward launches 7
+    quantized matmuls per layer."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    import deepspeed_tpu_torch.ops.cuda.quantized_matmul as qmm_mod
+    from deepspeed_tpu_torch.models import CausalLM, llama_config
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+
+    cfg = llama_config("7b")
+    n_layers, vocab = cfg.n_layers, cfg.vocab_size
+    per_forward = 7 * n_layers
+    seen = set()
+    real = qmm_mod.quantized_matmul
+
+    def recording(x, q, scale, bits):
+        seen.add((x.shape[0], x.shape[1], q.shape[1], bits, x.dtype))
+        return real(x, q, scale, bits=bits)
+
+    qmm_mod.quantized_matmul = recording
+    out = {}
+    try:
+        for bits in (8, 4):
+            label = f"int{bits}"
+            config = json.loads(json.dumps(MAIN_CONFIG))
+            config["quant"] = {"enabled": True, "bits": bits, "group_size": 64}
+            config["serving"]["kv_pool"]["kv_dtype"] = "int8"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = deepspeed_tpu_torch.init_inference(CausalLM(cfg), config)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            weight_bytes = sum(p.numel() * p.element_size() for p in eng.module.parameters())
+            scale_bytes_bf16 = sum(p.numel() * 2 for n, p in eng.module.named_parameters()
+                                   if n.endswith("kernel_scale"))
+            stored = {str(p.dtype) for n, p in eng.module.named_parameters()
+                      if "blocks" in n and ("kernel_q" in n)}
+            log(f"  {label}: init + quantize in {init_s:.2f} s; stored weights "
+                f"{weight_bytes / 1e9:.3f} GB ({stored}); peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            rng = np.random.RandomState(0)
+            requests = []
+            reset_launch_counts()
+            n_forwards = 0
+            for name, shape in REQUESTS:
+                ids = rng.randint(0, vocab, shape)
+                if name not in QUANT_REQUESTS:
+                    continue
+                streams = []
+                for attempt in ("cold", "warm"):
+                    before = dict(LAUNCH_COUNTS)
+                    t = time.perf_counter()
+                    o = eng.generate(ids, max_new_tokens=MAX_NEW, greedy=True)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                    o = o.cpu()
+                    launched = LAUNCH_COUNTS[f"quantized_matmul_{label}"] - before[
+                        f"quantized_matmul_{label}"]
+                    if launched != per_forward * MAX_NEW:
+                        raise AssertionError(f"{label} {name}: {launched} quantized matmul "
+                                             f"launches, expected {per_forward} x {MAX_NEW}")
+                    n_forwards += MAX_NEW
+                    if int(o.min()) < 0 or int(o.max()) >= vocab:
+                        raise AssertionError(f"{label} {name}: token outside the vocab")
+                    streams.append(o)
+                    sec = eng.last_timing.seconds()
+                    r = dict(request=f"{name}/{attempt}", batch=shape[0], prompt=shape[1],
+                             prefill_ms=sec["prefill"] * 1e3,
+                             decode_ms_per_token=sec["decode"] * 1e3 / (MAX_NEW - 1),
+                             wall_s=wall)
+                    log(f"  {label} {r['request']:18s} prefill {r['prefill_ms']:.2f} ms  "
+                        f"decode {r['decode_ms_per_token']:.3f} ms/token  wall {wall:.2f} s")
+                    requests.append(r)
+                if not torch.equal(*streams):
+                    raise AssertionError(f"{label} {name}: repeated greedy request differs")
+            gen_launches = dict(LAUNCH_COUNTS)
+            if gen_launches[f"quantized_matmul_{label}"] != per_forward * n_forwards:
+                raise AssertionError(f"{label}: generate launches {gen_launches}")
+            # data-sheet floor of a decode step: every weight read once
+            head_bytes = eng.params["lm_head"]["kernel"].numel() * 2 \
+                if "lm_head" in eng.params else 0
+            block_q = sum(p.numel() * p.element_size() for n, p in eng.module.named_parameters()
+                          if "kernel_q" in n)
+            floor_ms = (block_q + scale_bytes_bf16 + head_bytes) / H100_BYTES * 1e3
+            res = {"requests": requests, "launches_generate": gen_launches,
+                   "init_s": init_s, "stored_weight_gb": weight_bytes / 1e9,
+                   "decode_weight_bytes": block_q + scale_bytes_bf16 + head_bytes,
+                   "decode_floor_ms": floor_ms}
+            log(f"  {label}: weight bytes read per decode step "
+                f"{res['decode_weight_bytes'] / 1e9:.3f} GB -> floor {floor_ms:.3f} ms at 3.35 TB/s")
+            if bits == 8:
+                serving = phase_serving(torch, eng, set(main_path_prefill_shapes()),
+                                        paged_kernel="paged_flash_decode_int8",
+                                        qmm_kernel=f"quantized_matmul_{label}")
+                serving["pool_bytes_vs_bf16"] = serving["pool_bytes"] / bf16_pool_bytes
+                log(f"  int8 pool {serving['pool_bytes'] / 2**30:.3f} GiB against the bf16 "
+                    f"pool's {bf16_pool_bytes / 2**30:.3f} GiB "
+                    f"({serving['pool_bytes_vs_bf16']:.3f})")
+                res["serving"] = serving
+            out[label] = res
+            eng.destroy()
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        qmm_mod.quantized_matmul = real
+    unchecked = sorted(s for s in seen if (s[0], s[1], s[2], s[3], s[4]) not in checked_qmm)
+    if unchecked:
+        raise AssertionError(f"phase 7 ran quantized matmul shapes phase 2 did not check: "
+                             f"{unchecked}")
+    out["qmm_shapes"] = sorted(f"m{m} k{k} n{n} int{b}" for m, k, n, b, _ in seen)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1128,6 +1557,13 @@ def main():
     cases = phase_kernels(torch, F, main_shapes)
     paged_cases = phase_paged_kernels(torch, F)
     torch.cuda.empty_cache()
+    qmm_ms = qmm_main_ms()
+    log(f"  phase 7's quantized matmul token counts m: {qmm_ms}")
+    qmm_cases = phase_qmm_kernels(torch, qmm_ms)
+    checked_qmm = {(c["m"], c["k"], c["n"], c["bits"], torch.bfloat16)
+                   for c in qmm_cases if c["main_path"]}
+    paged_int8_cases = phase_paged_int8_kernels(torch, F)
+    torch.cuda.empty_cache()
     train_cases = phase_train_kernels(torch, F)
     checked = {"flash": {(c["b"], c["s_q"], c["h"], c["kv_heads"], c["d"])
                          for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]},
@@ -1139,6 +1575,10 @@ def main():
     log("phase 3: training on the card against the CPU port (GPT-2-medium width, 2 layers, "
         "fp32)")
     train_parity = phase_train_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    log("phase 3: quantized weights and the int8 pool on the card against the CPU port "
+        "(Llama-7B width, 2 layers, fp32)")
+    quant_parity = phase_quant_card_vs_cpu(torch)
     torch.cuda.empty_cache()
 
     log("phase 4: generate path (init_inference + generate, Llama-7B, bf16)")
@@ -1152,11 +1592,23 @@ def main():
 
     log("phase 6: training path (initialize + train_batch, GPT-2 medium, b12 x s1024, bf16)")
     training = phase_training(torch, checked)
+    torch.cuda.empty_cache()
+
+    log("phase 7: quantized serving path (int8 / int4 weights, int8 paged pool, fused decode, "
+        "Llama-7B, bf16)")
+    quant = phase_quant_path(torch, checked_qmm, serving["pool_bytes"])
     by_path = {"generate": launches, "serve": serving["launches"],
-               "train": training["launches"]}
+               "train": training["launches"],
+               "quant_generate_int8": quant["int8"]["launches_generate"],
+               "quant_serve_int8": quant["int8"]["serving"]["launches"],
+               "quant_generate_int4": quant["int4"]["launches_generate"]}
     path_kernels = {"generate": ("flash_attention_fwd",),
                     "serve": ("flash_attention_fwd", "paged_flash_decode"),
-                    "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward")}
+                    "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward"),
+                    "quant_generate_int8": ("flash_attention_fwd", "quantized_matmul_int8"),
+                    "quant_serve_int8": ("flash_attention_fwd", "paged_flash_decode_int8",
+                                         "quantized_matmul_int8"),
+                    "quant_generate_int4": ("flash_attention_fwd", "quantized_matmul_int4")}
     for path, names in path_kernels.items():
         for name in names:
             if by_path[path][name] == 0:
@@ -1170,6 +1622,13 @@ def main():
     bwd_main = next(c for c in train_cases["flash_bwd"]
                     if c["case"] == "train" and c["dtype"] == "bfloat16")
     ce_main = next(c for c in train_cases["ce"] if c["case"] == "train")
+    # the quantized matmul's headline: the serving decode's widest linear
+    # (m 8 slots, k 4096, n 11008, bf16); "cases" holds every shape
+    qmm_main = {bits: next(c for c in qmm_cases if c["bits"] == bits and c["main_path"]
+                           and (c["m"], c["k"], c["n"]) == (8, 4096, 11008))
+                for bits in (8, 4)}
+    paged_int8_main = next(c for c in paged_int8_cases
+                           if c["main_path"] and c["dtype"] == "bfloat16")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1239,6 +1698,42 @@ def main():
         "library_ms": ce_main["library_ms"],
         "shape": f"T={TRAIN_BATCH * TRAIN_SEQ} d=1024 V={TRAIN_VOCAB} bf16 (phase 6's head)",
         "cases": train_cases["ce"],
+    }] + [{
+        "name": f"quantized_matmul_int{bits}",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/quantized_matmul.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:"
+                    + ("161" if bits == 8 else "176"),
+        "launches": sum(c[f"quantized_matmul_int{bits}"] for c in by_path.values()),
+        "launches_by_path": {p: c[f"quantized_matmul_int{bits}"] for p, c in by_path.items()},
+        "max_abs_err": qmm_main[bits]["max_abs_err"],
+        "ms": qmm_main[bits]["ms"],
+        "plain_ms": qmm_main[bits]["plain_ms"],
+        "bound_ms": qmm_main[bits]["bound_ms"],
+        "bound_by": qmm_main[bits]["bound_by"],
+        "library_ms": qmm_main[bits]["library_ms"],
+        "shape": "m=8 k=4096 n=11008 group 64 bf16 (the serving decode's gate/up "
+                 "projection); library: torch.matmul on the weight dequantized to bf16",
+        "cases": [c for c in qmm_cases if c["bits"] == bits],
+    } for bits in (8, 4)] + [{
+        "name": "paged_flash_decode_int8",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/paged_flash_decode.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:289 (its int8 branch, "
+                    ":165-170)",
+        "launches": sum(c["paged_flash_decode_int8"] for c in by_path.values()),
+        "launches_by_path": {p: c["paged_flash_decode_int8"] for p, c in by_path.items()},
+        "max_abs_err": paged_int8_main["max_abs_err"],
+        "ms": paged_int8_main["ms"],
+        "plain_ms": paged_int8_main["plain_ms"],
+        "bound_ms": paged_int8_main["bound_ms"],
+        "bound_by": paged_int8_main["bound_by"],
+        "library_ms": paged_int8_main["library_ms"],
+        "shape": f"{paged_int8_main['slots']} slots, 32 heads, head_dim 128, blocks of "
+                 f"{paged_int8_main['block_size']}, cursors {paged_int8_main['cursors']}, "
+                 f"{paged_int8_main['splits']} splits, int8 pool, bf16 (phase 7's decode); "
+                 f"library: gather + masked SDPA on the pool dequantized beforehand",
+        "cases": paged_int8_cases,
     }]
     log(f"summary: card {card_line}; build {build_s:.1f} s; card-vs-CPU logits err "
         f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
@@ -1248,6 +1743,7 @@ def main():
     log(json.dumps({"profile": profile}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training, "train_card_vs_cpu": train_parity}))
+    log(json.dumps({"quantized": quant, "quant_card_vs_cpu": quant_parity}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ written by hand for Hopper (``csrc/``). It imports neither ``jax`` nor
 ``deepspeed_tpu``. The port goes slice by slice (ROADMAP.md queue A); this
 package currently serves ``init_inference(...).generate(...)`` and the
 continuous-batching ``init_inference(...).serve(...)`` (``serving/``) for
-the dense decoder families, and trains them with
+the dense decoder families, with int8/int4 weight-only quantization
+(``quant``) and an int8 paged KV pool (``kv_pool.kv_dtype="int8"``) as
+options, and trains them with
 ``initialize(...)`` -> ``engine.train_batch(...)`` at ZeRO stage 0 on one
 device (``runtime/``).
 """

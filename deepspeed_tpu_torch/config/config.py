@@ -6,8 +6,8 @@ keep the JAX package's keys, defaults and ``ConfigError`` cases, so the same
 of features the port does not serve yet (router, speculative decoding,
 migration, disaggregated pools, rebalancing, autoscaling, tenants, the
 degraded ladder) still parse, but one that asks for anything raises
-``NotImplementedError`` naming the ROADMAP item that ports it, as does an
-int8 KV pool: nothing is silently ignored.
+``NotImplementedError`` naming the ROADMAP item that ports it: nothing is
+silently ignored.
 
 ``DeepSpeedConfig`` is the training JSON of ``initialize``: the batch
 triangle, optimizer, scheduler, fp16/bf16, gradient clipping and ZeRO stage
@@ -45,8 +45,8 @@ class KVPoolConfig(ConfigModel):
     # (freed slots' dead decode writes land there). 0 = auto: the dense
     # pool's token capacity, n_slots * (max_len / block_size) + 1.
     n_blocks: int = 0
-    # "" = the engine serving dtype; "int8" (int8 payloads with fp32 scales)
-    # is ROADMAP A.4 in the port and raises
+    # "" = the engine serving dtype; "int8" = int8 payloads with one fp32
+    # scale per (token, head), dequantized to the serving dtype on read
     kv_dtype: str = ""
     # copy-on-write shared-prefix cache: full prompt blocks are content-
     # addressed; an identical prefix maps to the SAME physical blocks
@@ -80,8 +80,6 @@ class KVPoolConfig(ConfigModel):
             raise ConfigError(
                 f"kv_pool.attention_backend must be 'gather' or 'fused', "
                 f"got {self.attention_backend!r}")
-        if self.kv_dtype == "int8":
-            raise not_ported("kv_pool.kv_dtype='int8' (quantized KV pool)", "A.4")
 
 
 class ChunkedPrefillConfig(ConfigModel):

@@ -1,4 +1,5 @@
-// Paged flash-decode for Hopper (sm_90a), bf16 / fp16 / fp32.
+// Paged flash-decode for Hopper (sm_90a), bf16 / fp16 / fp32, on a pool of the
+// compute type or an int8 pool with per-(token, head) fp32 scales.
 //
 // Replaces the Pallas TPU kernel of deepspeed_tpu/ops/pallas/paged_attention.py:
 // _decode_kernel (pallas_call in paged_flash_decode), and the combine that
@@ -12,6 +13,14 @@
 // g = h / (n_heads / kv_heads) for j < pos[s], and the fresh row at j = pos[s].
 // The pool is [n_blocks, bs, kv_heads, head_dim] (one layer), read through
 // the strides the caller gives; head_dim is 64 or 128.
+//
+// The int8 pool (the int8 branch of the TPU kernel, _decode_kernel's
+// `if int8`) holds int8 rows and fp32 scales [n_blocks, bs, kv_heads, 1]:
+// each staged row is dequantized as float(q) * scale and rounded to the
+// compute type, as the TPU kernel's (k.astype(f32) * ks).astype(q.dtype),
+// and the rest of the kernel runs unchanged on the staged tile. A (token,
+// head) then moves 2 * (head_dim + 4) bytes instead of 4 * head_dim in bf16:
+// 132 against 256 at head_dim 128.
 //
 // What bounds it on an H100 SXM: bytes. Each (slot, kv head) reads its valid
 // K and V rows once, 2 * pos * head_dim elements, and does 4 * hq * head_dim
@@ -42,6 +51,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +96,8 @@ struct Params {
   const void* v_new;
   const void* kc;       // [n_blocks, bs, kv_heads, dh]
   const void* vc;
+  const float* k_scale; // int8 pool: [n_blocks, bs, kv_heads, 1]; else null
+  const float* v_scale;
   const int* table;     // [S, nb_cols]
   const int* pos;       // [S]
   const float* slopes;  // [n_heads] or null
@@ -95,6 +108,7 @@ struct Params {
   int n_heads, kv_heads, block_size, nb_cols, splits;
   long long q_ss, q_sh, kn_ss, kn_sh, vn_ss, vn_sh;
   long long c_sb, c_st, c_sh;   // pool strides (k and v alike)
+  long long s_sb, s_st, s_sh;   // scale strides (k and v alike)
   long long t_ss;
   long long o_ss, o_sh;
   float scale;
@@ -108,7 +122,8 @@ struct SplitSmem {
   }
 };
 
-template <typename T, int DH>
+// T: the compute type; P: the pool's element type (T, or int8_t)
+template <typename T, typename P, int DH>
 __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int sp = blockIdx.x, g = blockIdx.y, s = blockIdx.z;
@@ -136,7 +151,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(Params p) {
   }
   __syncthreads();
 
-  constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte load
+  constexpr int VEC = 16 / (int)sizeof(P);   // pool elements per 16-byte load
   constexpr int VPR = DH / VEC;              // 16-byte loads per row
   const int bps = p.nb_cols / p.splits;
   const int* trow = p.table + s * p.t_ss;
@@ -146,16 +161,37 @@ __global__ void __launch_bounds__(THREADS) paged_decode_split_kernel(Params p) {
     if (base >= cursor) break;               // the rest of the split is past the cursor
     const long long bid = trow[col];
     const int n_valid = min(p.block_size, cursor - base);
-    const T* kb = static_cast<const T*>(p.kc) + bid * p.c_sb + g * p.c_sh;
-    const T* vb = static_cast<const T*>(p.vc) + bid * p.c_sb + g * p.c_sh;
+    const P* kb = static_cast<const P*>(p.kc) + bid * p.c_sb + g * p.c_sh;
+    const P* vb = static_cast<const P*>(p.vc) + bid * p.c_sb + g * p.c_sh;
     for (int t0 = 0; t0 < n_valid; t0 += TILE) {
       const int nt = min(TILE, n_valid - t0);
       for (int e = tid; e < nt * VPR; e += THREADS) {
         const int t = e / VPR, c = (e % VPR) * VEC;
-        *reinterpret_cast<uint4*>(k_sh + t * DH + c) =
-            *reinterpret_cast<const uint4*>(kb + (t0 + t) * p.c_st + c);
-        *reinterpret_cast<uint4*>(v_sh + t * DH + c) =
-            *reinterpret_cast<const uint4*>(vb + (t0 + t) * p.c_st + c);
+        const uint4 kraw = *reinterpret_cast<const uint4*>(kb + (t0 + t) * p.c_st + c);
+        const uint4 vraw = *reinterpret_cast<const uint4*>(vb + (t0 + t) * p.c_st + c);
+        if constexpr (std::is_same<P, int8_t>::value) {
+          // dequantize on the staged tile: float(q) * scale, rounded to T
+          const long long si = bid * p.s_sb + (t0 + t) * p.s_st + g * p.s_sh;
+          const float ks = p.k_scale[si], vs = p.v_scale[si];
+          const int8_t* kq = reinterpret_cast<const int8_t*>(&kraw);
+          const int8_t* vq = reinterpret_cast<const int8_t*>(&vraw);
+          // dequantized in registers, stored 16 bytes at a time
+          alignas(16) T kd[VEC], vd[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            kd[i] = from_float<T>((float)kq[i] * ks);
+            vd[i] = from_float<T>((float)vq[i] * vs);
+          }
+          constexpr int CHUNKS = VEC * (int)sizeof(T) / 16;
+#pragma unroll
+          for (int j = 0; j < CHUNKS; ++j) {
+            reinterpret_cast<uint4*>(k_sh + t * DH + c)[j] = reinterpret_cast<const uint4*>(kd)[j];
+            reinterpret_cast<uint4*>(v_sh + t * DH + c)[j] = reinterpret_cast<const uint4*>(vd)[j];
+          }
+        } else {
+          *reinterpret_cast<uint4*>(k_sh + t * DH + c) = kraw;
+          *reinterpret_cast<uint4*>(v_sh + t * DH + c) = vraw;
+        }
       }
       __syncthreads();
       // scores: one warp per (query row, token)
@@ -252,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_combine_kernel(Params p)
   }
 }
 
-template <typename T, int DH>
+template <typename T, typename P, int DH>
 cudaError_t launch(const Params& p, int n_slots, cudaStream_t stream) {
   const int hq = p.n_heads / p.kv_heads;
   const size_t bytes = SplitSmem<T, DH>::bytes(hq);
@@ -261,11 +297,11 @@ cudaError_t launch(const Params& p, int n_slots, cudaStream_t stream) {
   // one query head per kv head, no host call is spent on it
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_split_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_split_kernel<T, P, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return err;
   }
-  paged_decode_split_kernel<T, DH>
+  paged_decode_split_kernel<T, P, DH>
       <<<dim3(p.splits, p.kv_heads, n_slots), THREADS, bytes, stream>>>(p);
   const cudaError_t err1 = cudaGetLastError();
   if (err1 != cudaSuccess) return err1;
@@ -273,11 +309,18 @@ cudaError_t launch(const Params& p, int n_slots, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_d(const Params& p, int n_slots, int head_dim, cudaStream_t stream) {
-  if (head_dim == 64) return launch<T, 64>(p, n_slots, stream);
-  if (head_dim == 128) return launch<T, 128>(p, n_slots, stream);
+  if (head_dim == 64) return launch<T, P, 64>(p, n_slots, stream);
+  if (head_dim == 128) return launch<T, P, 128>(p, n_slots, stream);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_pool(const Params& p, bool int8_pool, int n_slots, int head_dim,
+                        cudaStream_t stream) {
+  if (int8_pool) return launch_d<T, int8_t>(p, n_slots, head_dim, stream);
+  return launch_d<T, T>(p, n_slots, head_dim, stream);
 }
 
 }  // namespace
@@ -290,24 +333,31 @@ extern "C" int ds_paged_decode_smem_optin(int device) {
   return err == cudaSuccess ? bytes : -1;
 }
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. table and pos are int32;
+// dtype (of q, the fresh rows and out): 0 = float32, 1 = float16, 2 = bfloat16.
+// int8_pool: 0 = kc/vc hold dtype and k_scale/v_scale are null; 1 = kc/vc are
+// int8 and k_scale/v_scale fp32 [n_blocks, bs, kv_heads, 1] with the strides
+// s_sb, s_st, s_sh (shared by both). table and pos are int32;
 // slopes is fp32 [n_heads] or null; acc/m/l are the caller's fp32 scratch of
 // [S, kv_heads, splits, hq, dh] and [S, kv_heads, splits, hq]. Strides are in
 // elements; the last dimension of every tensor is contiguous; k and v pools
 // share their strides. Returns a cudaError_t.
 extern "C" int ds_paged_flash_decode(
     const void* q, const void* k_new, const void* v_new, const void* kc, const void* vc,
-    const void* table, const void* pos, const void* slopes, void* acc, void* m, void* l,
-    void* out, int dtype, int n_slots, int n_heads, int kv_heads, int head_dim,
-    int block_size, int nb_cols, int splits, long long q_ss, long long q_sh,
-    long long kn_ss, long long kn_sh, long long vn_ss, long long vn_sh, long long c_sb,
-    long long c_st, long long c_sh, long long t_ss, long long o_ss, long long o_sh,
-    float scale, void* stream) {
+    const void* k_scale, const void* v_scale, const void* table, const void* pos,
+    const void* slopes, void* acc, void* m, void* l, void* out, int dtype, int int8_pool,
+    int n_slots, int n_heads, int kv_heads, int head_dim, int block_size, int nb_cols,
+    int splits, long long q_ss, long long q_sh, long long kn_ss, long long kn_sh,
+    long long vn_ss, long long vn_sh, long long c_sb, long long c_st, long long c_sh,
+    long long s_sb, long long s_st, long long s_sh, long long t_ss, long long o_ss,
+    long long o_sh, float scale, void* stream) {
   if (n_slots <= 0 || n_heads <= 0 || kv_heads <= 0 || n_heads % kv_heads != 0 ||
-      block_size <= 0 || nb_cols <= 0 || splits <= 0 || nb_cols % splits != 0)
+      block_size <= 0 || nb_cols <= 0 || splits <= 0 || nb_cols % splits != 0 ||
+      (int8_pool && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k_new = k_new; p.v_new = v_new; p.kc = kc; p.vc = vc;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.table = static_cast<const int*>(table);
   p.pos = static_cast<const int*>(pos);
   p.slopes = static_cast<const float*>(slopes);
@@ -320,14 +370,15 @@ extern "C" int ds_paged_flash_decode(
   p.q_ss = q_ss; p.q_sh = q_sh; p.kn_ss = kn_ss; p.kn_sh = kn_sh;
   p.vn_ss = vn_ss; p.vn_sh = vn_sh;
   p.c_sb = c_sb; p.c_st = c_st; p.c_sh = c_sh;
+  p.s_sb = s_sb; p.s_st = s_st; p.s_sh = s_sh;
   p.t_ss = t_ss; p.o_ss = o_ss; p.o_sh = o_sh;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_d<float>(p, n_slots, head_dim, st); break;
-    case 1: err = launch_d<__half>(p, n_slots, head_dim, st); break;
-    case 2: err = launch_d<__nv_bfloat16>(p, n_slots, head_dim, st); break;
+    case 0: err = launch_pool<float>(p, int8_pool != 0, n_slots, head_dim, st); break;
+    case 1: err = launch_pool<__half>(p, int8_pool != 0, n_slots, head_dim, st); break;
+    case 2: err = launch_pool<__nv_bfloat16>(p, int8_pool != 0, n_slots, head_dim, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

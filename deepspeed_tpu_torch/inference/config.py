@@ -24,6 +24,10 @@ class MoEInferenceConfig(ConfigModel):
 
 
 class QuantizationConfig(ConfigModel):
+    """Weight-only quantization of the block matmuls at engine construction
+    (``inference/engine.py _quantize_weights``): int8, or int4 nibble-packed,
+    with one scale per ``group_size`` input rows and output column."""
+
     enabled: bool = False
     bits: int = 8
     group_size: int = 64
@@ -104,7 +108,5 @@ class DeepSpeedInferenceConfig(ConfigModel):
             raise not_ported("tensor-parallel inference (tp_size > 1)", "A.7")
         if self.moe.enabled and self.moe.ep_size > 1:
             raise not_ported("expert-parallel inference (ep_size > 1)", "A.7")
-        if self.quant.enabled:
-            raise not_ported("weight-only quantized inference", "A.4")
         if self.injection_policy:
             raise not_ported("injection_policy", "A.7")

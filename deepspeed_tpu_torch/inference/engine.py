@@ -7,7 +7,9 @@ derived from the engine seed, the request count and the prompt length,
 ``temperature == 0`` as greedy, and an early stop once every row has
 emitted ``eos_token_id``. Prefill and decode run eagerly on the engine's
 device; the weights live on the model (``engine.params``) in the serving
-dtype.
+dtype. With ``quant.enabled`` the block matmul kernels are then quantized
+to int8 or int4 (``_quantize_weights``) and every block linear runs the
+dequant-matmul kernel.
 
 ``serve`` streams requests through the continuous-batching slot pool of
 ``serving/engine.py`` (the ``serving`` config block), built lazily on first
@@ -25,7 +27,7 @@ import torch
 
 from ..accelerator import get_accelerator
 from ..config.base import ConfigError
-from ..models.layers import flatten_tree, tree_map
+from ..models.layers import flatten_tree, unflatten_tree
 from ..utils import not_ported
 from ..utils.logging import log_dist
 
@@ -54,6 +56,8 @@ class InferenceEngine:
         self.last_timing = None
         self._serving = None
         self._init_parameters(model_parameters)
+        if config.quant.enabled:
+            self._quantize_weights()
         log_dist(f"InferenceEngine: device={self.device} dtype={config.dtype} "
                  f"max_tokens={config.max_tokens}", ranks=[0])
 
@@ -76,14 +80,85 @@ class InferenceEngine:
     @params.setter
     def params(self, values):
         """Accepts the port's tree of tensors or a JAX params tree of numpy
-        arrays; either is cast to the serving dtype on the engine's device."""
-        if all(isinstance(v, torch.Tensor) for v in flatten_tree(values).values()):
-            values = tree_map(lambda v: v.detach().to(self.device, self.dtype), values)
-        else:
-            from ..interop.jax_params import from_jax
+        arrays; either is cast to the serving dtype on the engine's device,
+        apart from quantized payloads and their scales (``stored_dtype``).
+        A float tree set on a ``quant`` engine is not quantized again until
+        ``_quantize_weights`` runs, as in the JAX engine."""
+        from ..interop.jax_params import from_jax, stored_dtype
 
+        flat = flatten_tree(values)
+        if all(isinstance(v, torch.Tensor) for v in flat.values()):
+            values = unflatten_tree({
+                path: v.detach().to(self.device, stored_dtype(path, v, self.dtype))
+                for path, v in flat.items()})
+        else:
             values = from_jax(values, self.module, dtype=self.dtype, device=self.device)
         self.module.load_params(values)
+
+    @torch.no_grad()
+    def _quantize_weights(self):
+        """Weight-only int8/int4 serving (the JAX engine's
+        ``_quantize_weights``): every block matmul ``kernel`` of ndim >= 2
+        (stacked [L, in, out]) outside ``router`` subtrees becomes
+        ``kernel_q`` (int8) or, for bits 4 and an even in-dim, the nibble-
+        packed ``kernel_q4`` (uint8 [L, in/2, out]), beside ``kernel_scale``
+        (fp32 [L, groups, 1, out]). Embeddings, norms and the head stay in
+        the serving dtype. Quantized on the engine's device from the serving-
+        dtype weights, one layer at a time, and each float kernel is dropped
+        as soon as its quantized form exists: the peak is the serving-dtype
+        model plus one quantized kernel."""
+        from ..ops.quantizer import pack_int4, quantize_per_channel
+
+        bits = self._config.quant.bits
+        group_size = self._config.quant.group_size
+        blocks = self.module._modules.get("blocks")
+        if blocks is None:
+            raise ConfigError(
+                "quant.enabled needs a zoo-style model (params with a "
+                "'blocks' subtree whose matmuls read quantized kernels); an "
+                "injection-policy-served unknown model must be served "
+                "unquantized")
+        counts = {"packed": 0, "int8": 0}
+
+        def quantize(w):
+            # layer by layer: layer-sized fp32 temporaries, the same values
+            lead = w.shape[:-2]
+            w2 = w.reshape(-1, *w.shape[-2:])
+            q0, s0 = quantize_per_channel(w2[0], bits=bits, group_size=group_size)
+            packed = bits == 4 and w.shape[-2] % 2 == 0
+            if packed:
+                q0 = pack_int4(q0)
+            q = torch.empty((w2.shape[0], *q0.shape), dtype=q0.dtype, device=w.device)
+            scale = torch.empty((w2.shape[0], *s0.shape), dtype=s0.dtype, device=w.device)
+            q[0], scale[0] = q0, s0
+            for i in range(1, w2.shape[0]):
+                qi, scale[i] = quantize_per_channel(w2[i], bits=bits, group_size=group_size)
+                q[i] = pack_int4(qi) if packed else qi
+            return (q.reshape(*lead, *q0.shape), scale.reshape(*lead, *s0.shape), packed)
+
+        def walk(node, name):
+            if "router" in name:
+                return  # MoE routers stay in the serving dtype (stable gating)
+            kernel = node._parameters.get("kernel")
+            if kernel is not None and kernel.dim() >= 2:
+                q, scale, packed = quantize(kernel)
+                del node._parameters["kernel"]
+                node.register_parameter("kernel_q4" if packed else "kernel_q",
+                                        torch.nn.Parameter(q, requires_grad=False))
+                node.register_parameter("kernel_scale",
+                                        torch.nn.Parameter(scale, requires_grad=False))
+                counts["packed" if packed else "int8"] += 1
+                return
+            for key, child in node._modules.items():
+                walk(child, f"{name}/{key}")
+
+        walk(blocks, "blocks")
+        packed_note = f", {counts['packed']} nibble-packed" if counts["packed"] else ""
+        fallback_note = f", {counts['int8']} int8-stored" \
+            if bits == 4 and counts["int8"] else ""
+        log_dist(f"int{bits} weight-only quantization applied to "
+                 f"{sum(counts.values())} block kernels "
+                 f"(group_size={group_size}{packed_note}{fallback_note})", ranks=[0])
 
     def load_checkpoint(self, load_dir, tag=None):
         raise not_ported("InferenceEngine.load_checkpoint", "A.5")

@@ -6,7 +6,10 @@ never imports JAX). Keys are the JAX pytree paths (``wte/weight``,
 ``blocks/attn/q/kernel``, ...); stacked block leaves carry the leading layer
 axis; linear kernels are ``[in, out]`` and used as ``x @ kernel`` on both
 sides, so no leaf is transposed. Missing or extra keys and shape mismatches
-raise.
+raise. A tree that the JAX engine's weight-only quantization produced
+(``kernel_q`` int8, ``kernel_q4`` uint8, ``kernel_scale`` fp32 in place of a
+block ``kernel``) is taken as it is: the integer payloads keep their dtype
+and the scales stay fp32, as the JAX engine stores them.
 """
 
 import numpy as np
@@ -15,11 +18,22 @@ import torch
 from ..models.layers import flatten_tree, tree_map, unflatten_tree
 
 
+def stored_dtype(path, leaf, dtype):
+    """The dtype leaf ``path`` is kept in when a tree is cast to ``dtype``:
+    integer leaves (quantized payloads) and quantization scales keep their
+    own, as the JAX engine keeps them; every other leaf takes ``dtype``
+    (its own when ``dtype`` is None)."""
+    if not leaf.is_floating_point() or path.endswith("/kernel_scale"):
+        return leaf.dtype
+    return dtype or leaf.dtype
+
+
 def from_jax(values, model, dtype=None, device="cpu"):
     """JAX params (nested dict of numpy arrays) -> the port's params tree of
-    tensors for ``model``, in ``dtype`` (default: each leaf's own) on ``device``."""
-    expected = model.param_shapes()
+    tensors for ``model``, in ``dtype`` (default: each leaf's own) on ``device``;
+    integer leaves and quantization scales keep their own dtype."""
     flat = flatten_tree(values)
+    expected = model.param_shapes(like=flat)
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:
@@ -32,14 +46,16 @@ def from_jax(values, model, dtype=None, device="cpu"):
             raise ValueError(f"{path}: JAX shape {tuple(arr.shape)}, port expects "
                              f"{expected[path]}")
         t = torch.from_numpy(np.array(arr, copy=True))
-        out[path] = t.to(device=device, dtype=dtype or t.dtype)
+        out[path] = t.to(device=device, dtype=stored_dtype(path, t, dtype))
     return unflatten_tree(out)
 
 
 def to_jax(params):
-    """The port's params tree -> nested dict of float32 numpy arrays keyed
-    like the JAX pytree (what ``from_jax`` takes back)."""
-    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), params)
+    """The port's params tree -> nested dict of numpy arrays keyed like the
+    JAX pytree (what ``from_jax`` takes back): floating leaves as float32,
+    integer leaves (quantized payloads) in their own dtype."""
+    return tree_map(lambda t: (t.detach().cpu().float() if t.is_floating_point()
+                               else t.detach().cpu()).numpy(), params)
 
 
 def load_jax_params(model, values, dtype=None, device="cpu"):

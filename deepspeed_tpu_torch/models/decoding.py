@@ -21,14 +21,20 @@ The paged half (``init_paged_cache`` .. ``gather_slot_cache``) keeps the
 serving pool as ``[layers, n_blocks, block_size, kv_heads, head_dim]``
 physical blocks plus a per-slot block table. A decode step reads it through
 a gathered dense view (``attention_backend="gather"``) or through the paged
-flash-decode kernel, which walks the table itself (``"fused"``). The int8
-pool is ROADMAP A.4 and speculative verify A.3.
+flash-decode kernel, which walks the table itself (``"fused"``). An int8
+pool (``kv_dtype="int8"``) adds ``k_scale``/``v_scale`` [layers, n_blocks,
+block_size, kv_heads, 1] fp32, one scale per (token, head): rows are
+quantized with ``comm/collectives.py quantize_blockwise`` as they are
+written, and dequantized to the compute dtype as they are read (the gather
+view, the prefix seed) or inside the kernel (fused). Speculative verify is
+ROADMAP A.3.
 """
 
 import torch
 
 from . import layers as L
 from .transformer import _mlp_apply, _norm_apply, layer_params
+from ..comm.collectives import dequantize_blockwise, quantize_blockwise
 from ..utils import not_ported
 
 
@@ -72,45 +78,62 @@ def init_paged_cache(cfg, n_blocks, block_size, dtype=None, kv_dtype=None, devic
     """The paged KV pool: ``n_blocks`` physical blocks of ``block_size``
     tokens, stacked over layers (a physical block id addresses the same
     block row in EVERY layer, so host allocation is one decision per token
-    block, not per layer). k/v: [L, n_blocks, block_size, kvh, dh]."""
-    if kv_dtype == "int8":
-        raise not_ported("the int8 paged KV pool", "A.4")
+    block, not per layer). k/v: [L, n_blocks, block_size, kvh, dh] in
+    ``dtype``; with ``kv_dtype="int8"`` int8, plus k_scale/v_scale
+    [L, n_blocks, block_size, kvh, 1] fp32."""
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.n_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:-1] + (1,), torch.float32),
+                "v_scale": zeros(shape[:-1] + (1,), torch.float32)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _paged_view(kc, table):
+def _paged_view(kc, table, sc=None, dtype=None):
     """A slot-major dense view of one layer of the pool through the block
     table: kc [n_blocks, bs, kvh, dh], table [S, NB] -> [S, NB * bs, kvh, dh]
     (row s holds slot s's KV window in position order: block j covers
     positions [j*bs, (j+1)*bs)), the dense cache layout, so the attention
-    downstream is the dense per-row path. The view is a gathered copy."""
+    downstream is the dense per-row path. The view is a gathered copy; an
+    int8 layer (scales ``sc``) is dequantized to ``dtype``."""
     s_dim, per_slot = table.shape
     _, bs, kvh, dh = kc.shape
-    return kc[table.long()].reshape(s_dim, per_slot * bs, kvh, dh)
+    idx = table.long()
+    g = kc[idx]
+    if sc is not None:
+        g = dequantize_blockwise(g, sc[idx], dtype)
+    return g.reshape(s_dim, per_slot * bs, kvh, dh)
 
 
-def _paged_writeback_rows(kc, rows, table, pos, block_size):
+def _paged_writeback_rows(kc, rows, table, pos, block_size, sc=None):
     """Write each slot's fresh [S, kvh, dh] row into the pool at (table[s,
-    pos // bs], pos % bs), in place. Freed slots carry an all-garbage-block
-    table row, so their dead writes land in the reserved garbage block
-    instead of a reallocated one."""
+    pos // bs], pos % bs), in place; an int8 layer (scales ``sc``) stores
+    ``quantize_blockwise(rows, block=dh)``. Freed slots carry an all-
+    garbage-block table row, so their dead writes land in the reserved
+    garbage block instead of a reallocated one."""
     pos = pos.long()
     j = torch.clamp(pos // block_size, 0, table.shape[1] - 1)
     bi = table.long().gather(1, j[:, None])[:, 0]
-    kc[bi, pos % block_size] = rows.to(kc.dtype)
+    off = pos % block_size
+    if sc is not None:
+        q, scale = quantize_blockwise(rows, block=rows.shape[-1])
+        kc[bi, off] = q
+        sc[bi, off] = scale
+        return
+    kc[bi, off] = rows.to(kc.dtype)
 
 
-def _paged_writeback(kc, view, table, pos, block_size):
+def _paged_writeback(kc, view, table, pos, block_size, sc=None):
     """``_paged_writeback_rows`` of the row each slot just wrote into the
     dense ``view`` at its cursor."""
     rows = view[torch.arange(view.shape[0], device=view.device), pos.long()]
-    _paged_writeback_rows(kc, rows, table, pos, block_size)
+    _paged_writeback_rows(kc, rows, table, pos, block_size, sc)
 
 
-def _attn_paged_fused(cfg, p_attn, h, kc, vc, table, pos, rope=None):
+def _attn_paged_fused(cfg, p_attn, h, kc, vc, ks, vs, table, pos, rope=None):
     """The fused-backend twin of ``_attn_with_cache`` for paged decode
     (q_len == 1): project q/k/v for the current token, then attend straight
     against the POOL through the paged flash-decode kernel, which walks the
@@ -118,15 +141,15 @@ def _attn_paged_fused(cfg, p_attn, h, kc, vc, table, pos, rope=None):
     Returns ``(out [S, 1, d], (k_row, v_row))`` with the fresh [S, kvh, dh]
     rows for the caller's pool writeback (the kernel folds them into the
     softmax in compute dtype, the value the gather path attends at the
-    cursor)."""
+    cursor). ``ks``/``vs``: the int8 layer's scales, else None."""
     from ..ops.cuda.paged_attention import paged_flash_decode
 
     b, q_len, _ = h.shape
     q, k, v = _project_qkv(cfg, p_attn, h, rope=rope)
     slopes = L.alibi_slopes(cfg.n_heads, h.device) \
         if cfg.position_embedding == "alibi" else None
-    out = paged_flash_decode(q[:, 0], k[:, 0], v[:, 0], kc, vc, table, pos,
-                             scale=cfg.attn_scale, alibi_slopes=slopes)
+    out = paged_flash_decode(q[:, 0], k[:, 0], v[:, 0], kc, vc, table, pos, k_scale=ks,
+                             v_scale=vs, scale=cfg.attn_scale, alibi_slopes=slopes)
     out = L.linear_apply(p_attn["o"], out.reshape(b, q_len, -1))
     return out, (k[:, 0], v[:, 0])
 
@@ -135,7 +158,8 @@ def forward_with_paged_cache(model, params, input_ids, pool, table, pos, block_s
                              draft_len=None, attention_backend="gather", layers=None):
     """One decode step ([S, 1] tokens) reading and writing KV through the
     block table — the paged twin of ``forward_with_cache``'s per-row decode.
-    ``pool``: {"k", "v"} [L, n_blocks, bs, kvh, dh], updated in place;
+    ``pool``: {"k", "v"} [L, n_blocks, bs, kvh, dh] (int8 pools also
+    "k_scale", "v_scale" [L, n_blocks, bs, kvh, 1]), updated in place;
     ``table``: [S, NB] int32 block ids; ``pos``: [S] int32 cursors.
 
     ``"gather"``: per layer, gather the slot-major dense view through
@@ -143,7 +167,10 @@ def forward_with_paged_cache(model, params, input_ids, pool, table, pos, block_s
     then write each slot's new row back into the pool. ``"fused"``: the
     paged flash-decode kernel attends to the pool's [0, pos) plus the fresh
     row, which is written back after attention, so the kernel never reads
-    the pool row at ``pos``. Returns logits [S, 1, vocab].
+    the pool row at ``pos``. On an int8 pool the gather view is dequantized
+    to the compute dtype and the fresh row attends unquantized on both
+    backends; the row is quantized as it is written back. Returns logits
+    [S, 1, vocab].
 
     ``draft_len`` (speculative verify) is ROADMAP A.3."""
     cfg = model.config
@@ -166,22 +193,25 @@ def forward_with_paged_cache(model, params, input_ids, pool, table, pos, block_s
     x, rope = _embed(model, params, input_ids, positions)
     if layers is None:
         layers = unstack_layers(params, cfg.n_layers)
+    int8 = "k_scale" in pool
     for i, p_i in enumerate(layers):
         kc, vc = pool["k"][i], pool["v"][i]
+        ks, vs = (pool["k_scale"][i], pool["v_scale"][i]) if int8 else (None, None)
         if fused:
-            def attn_impl(p_attn, hh, kc=kc, vc=vc):
-                return _attn_paged_fused(cfg, p_attn, hh, kc, vc, table, pos, rope=rope)
+            def attn_impl(p_attn, hh, kc=kc, vc=vc, ks=ks, vs=vs):
+                return _attn_paged_fused(cfg, p_attn, hh, kc, vc, ks, vs, table, pos,
+                                         rope=rope)
 
             x, (k_row, v_row) = _block_cached(cfg, p_i, x, None, None, pos, kv_len,
                                               rope=rope, attn_impl=attn_impl)
-            _paged_writeback_rows(kc, k_row, table, pos, block_size)
-            _paged_writeback_rows(vc, v_row, table, pos, block_size)
+            _paged_writeback_rows(kc, k_row, table, pos, block_size, ks)
+            _paged_writeback_rows(vc, v_row, table, pos, block_size, vs)
             continue
-        kview = _paged_view(kc, table)
-        vview = _paged_view(vc, table)
+        kview = _paged_view(kc, table, ks, cfg.compute_dtype)
+        vview = _paged_view(vc, table, vs, cfg.compute_dtype)
         x, _ = _block_cached(cfg, p_i, x, kview, vview, pos, kv_len, rope=rope)
-        _paged_writeback(kc, kview, table, pos, block_size)
-        _paged_writeback(vc, vview, table, pos, block_size)
+        _paged_writeback(kc, kview, table, pos, block_size, ks)
+        _paged_writeback(vc, vview, table, pos, block_size, vs)
     return _head(model, params, x)
 
 
@@ -191,20 +221,28 @@ def insert_block_kv(pool, dense_cache, block_ids, src_start, block_size):
     ``dense_cache`` ({"k","v"} [L, 1, max_len, kvh, dh]) land in physical
     block ``block_ids[i]``. One index_put per tensor for all the blocks (the
     JAX package copies one block per call). Each block is overwritten
-    whole, so nothing from its previous occupant survives."""
+    whole, so nothing from its previous occupant survives. An int8 pool
+    stores ``quantize_blockwise(rows, block=dh)`` and its scales."""
     ids = torch.as_tensor(block_ids, dtype=torch.long).reshape(-1)
     n = ids.numel()
     for name in ("k", "v"):
         src = dense_cache[name][:, 0, src_start:src_start + n * block_size]
         lead, _, kvh, dh = src.shape
-        pool[name][:, ids.to(src.device)] = src.reshape(
-            lead, n, block_size, kvh, dh).to(pool[name].dtype)
+        rows = src.reshape(lead, n, block_size, kvh, dh)
+        idx = ids.to(src.device)
+        if name + "_scale" in pool:
+            q, scale = quantize_blockwise(rows, block=dh)
+            pool[name][:, idx] = q
+            pool[name + "_scale"][:, idx] = scale
+        else:
+            pool[name][:, idx] = rows.to(pool[name].dtype)
     return pool
 
 
 def reset_block_kv(pool, block_id):
     """Zero physical block ``block_id`` of the pool, in place (the block-
-    granularity hygiene scrub)."""
+    granularity hygiene scrub; an int8 pool's scales are zeroed too, so a
+    dequantized read is exactly 0)."""
     for a in pool.values():
         a[:, block_id] = 0
     return pool
@@ -215,11 +253,14 @@ def gather_slot_cache(cfg, pool, table_row, dtype):
     table row — a COPY, never aliasing the pool. It seeds the suffix prefill
     on a shared-prefix hit: positions below the shared length hold the
     canonical prefix KV, everything above is garbage the suffix prefill
-    overwrites or the causal mask hides."""
+    overwrites or the causal mask hides. An int8 pool is dequantized to
+    ``dtype``."""
     out = {}
     for name in ("k", "v"):
-        g = pool[name][:, torch.as_tensor(table_row, dtype=torch.long,
-                                           device=pool[name].device)]
+        idx = torch.as_tensor(table_row, dtype=torch.long, device=pool[name].device)
+        g = pool[name][:, idx]
+        if name + "_scale" in pool:
+            g = dequantize_blockwise(g, pool[name + "_scale"][:, idx], dtype)
         lead, nb, bs, kvh, dh = g.shape
         out[name] = g.reshape(lead, 1, nb * bs, kvh, dh).to(dtype)
     return out

@@ -18,8 +18,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import not_ported
-
 
 # ---------------------------------------------------------------------------------
 # Parameter trees
@@ -134,8 +132,26 @@ def attention_init(gen, embed_dim, n_heads, n_kv_heads=None, bias=True, stddev=0
 # Linear / embedding / norms
 # ---------------------------------------------------------------------------------
 def linear_apply(p, x, compute_dtype=None):
+    """``x @ kernel (+ bias)``. A weight-only quantized linear holds
+    ``kernel_q`` (int8 [in, out], which also stores the 4-bit values of an
+    odd in-dim) or ``kernel_q4`` (nibble-packed uint8 [in/2, out]) beside
+    ``kernel_scale`` [groups, 1, out]: it goes through the dequant-matmul
+    (the CUDA kernel on the card, whatever the token count; its plain
+    version on the CPU) with the scale in x's dtype, and the bias is added
+    after, in y's dtype."""
     if "kernel_q4" in p or "kernel_q" in p:
-        raise not_ported("weight-only quantized linear", "A.4")
+        from ..ops.cuda.quantized_matmul import quantized_matmul
+
+        bits = 4 if "kernel_q4" in p else 8
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        q = p["kernel_q4"] if bits == 4 else p["kernel_q"]
+        y = quantized_matmul(x.reshape(-1, x.shape[-1]).contiguous(), q,
+                             p["kernel_scale"].to(x.dtype), bits=bits)
+        y = y.reshape(*x.shape[:-1], q.shape[-1])
+        if "bias" in p:
+            y = y + p["bias"].to(y.dtype)
+        return y
     kernel = p["kernel"]
     if compute_dtype is not None:
         kernel = kernel.to(compute_dtype)

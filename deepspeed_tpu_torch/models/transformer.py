@@ -126,8 +126,10 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_impl must be one of xla|flash|jax_flash|"
                 f"block_sparse, got {self.attention_impl!r}")
-        if self.attention_impl in ("jax_flash", "block_sparse"):
-            raise not_ported(f"attention_impl={self.attention_impl!r}", "A.9")
+        if self.attention_impl == "block_sparse":
+            raise not_ported("attention_impl='block_sparse'", "A.10")
+        if self.attention_impl == "jax_flash":
+            raise not_ported("attention_impl='jax_flash'", "A.9")
         if self.n_experts > 0:
             raise not_ported("mixture-of-experts layers (n_experts > 0)", "A.7")
         if self.local_attention_window > 0:
@@ -226,13 +228,22 @@ def stack_init(gen, cfg, **kw):
     return block_init(gen, cfg, lead=(cfg.n_layers,), **kw)
 
 
+# the leaves a weight-only quantized linear holds instead of its "kernel"
+_QUANTIZED_LEAVES = ("kernel_q", "kernel_q4", "kernel_scale")
+
+
 def layer_params(stacked, i):
-    """Views of layer ``i`` of the stacked block params."""
+    """Views of layer ``i`` of the stacked block params (quantized leaves
+    included: ``kernel_scale`` [L, groups, 1, out] gives [groups, 1, out])."""
     return L.tree_map(lambda a: a[i], stacked)
 
 
 def _cast_block_params(cfg, p):
-    """Matmul weights to the compute dtype; norm params stay as stored."""
+    """Matmul weights to the compute dtype; norm params stay as stored.
+    Only floating leaves are cast, as in the JAX package: the int8/uint8
+    payloads of a quantized linear stay, and its fp32 ``kernel_scale`` goes
+    to the compute dtype (in bf16 serving the dequant sees a bf16 scale on
+    both sides)."""
     cast = lambda a: a.to(cfg.compute_dtype) if a.is_floating_point() else a
     return {"ln_1": p["ln_1"], "ln_2": p["ln_2"],
             "attn": L.tree_map(cast, p["attn"]), "mlp": L.tree_map(cast, p["mlp"])}
@@ -290,7 +301,9 @@ def unstack_layers(cfg, stacked_params):
     the matmul weights go to the compute dtype (norm params stay as stored,
     as ``_cast_block_params`` keeps them), so a backward casts and stacks
     each leaf's per-layer grads once instead of scattering each layer's
-    grad into a zero copy of the whole stack."""
+    grad into a zero copy of the whole stack. As ``_cast_block_params``,
+    only floating leaves are cast: quantized payloads stay int8/uint8 and
+    ``kernel_scale`` goes to the compute dtype."""
     parts = {}
     for path, leaf in L.flatten_tree(stacked_params).items():
         if path.split("/")[0] in ("attn", "mlp") and leaf.is_floating_point():
@@ -355,17 +368,42 @@ class CausalLM(L.ParamTree):
                 stddev=cfg.initializer_range, **kw)
         return params
 
-    def param_shapes(self):
-        """{pytree path: shape} of every parameter this config has."""
-        return {k: tuple(v.shape) for k, v in
-                L.flatten_tree(self.init(device="meta")).items()}
+    def param_shapes(self, like=None):
+        """{pytree path: shape} of every parameter this config has.
+
+        ``like`` (a flat {path: leaf} tree of tensors or numpy arrays): a
+        weight-only quantized kernel in it (``inference/engine.py
+        _quantize_weights``) takes the place of its float ``kernel``:
+        ``kernel_q`` [..., in, out], ``kernel_q4`` [..., in/2, out] and
+        ``kernel_scale`` [..., groups, 1, out], with the group count read from
+        ``like`` (it must divide in)."""
+        dense = {k: tuple(v.shape) for k, v in
+                 L.flatten_tree(self.init(device="meta")).items()}
+        shapes = dict(dense)
+        for path, leaf in (like or {}).items():
+            base, _, name = path.rpartition("/")
+            kernel = f"{base}/kernel"
+            if name not in _QUANTIZED_LEAVES or kernel not in dense:
+                continue
+            shapes.pop(kernel, None)
+            *lead, d_in, d_out = dense[kernel]
+            if name == "kernel_q":
+                shapes[path] = (*lead, d_in, d_out)
+            elif name == "kernel_q4":
+                shapes[path] = (*lead, d_in // 2 if d_in % 2 == 0 else -1, d_out)
+            else:
+                groups = leaf.shape[-3] if len(leaf.shape) >= 3 else 0
+                ok = groups > 0 and d_in % groups == 0
+                shapes[path] = (*lead, groups if ok else -1, 1, d_out)
+        return shapes
 
     def load_params(self, params, requires_grad=False):
         """Register ``params`` (a tree of tensors) as this module's weights
         (trainable with ``requires_grad``); missing or extra keys and shape
-        mismatches raise."""
-        expected = self.param_shapes()
+        mismatches raise. Weight-only quantized kernels are taken in place of
+        their float kernels (``param_shapes(like=...)``)."""
         flat = L.flatten_tree(params)
+        expected = self.param_shapes(like=flat)
         missing = sorted(set(expected) - set(flat))
         extra = sorted(set(flat) - set(expected))
         if missing or extra:

@@ -1,0 +1,167 @@
+"""Weight-only int8/int4 dequant-matmul: the CUDA kernel's wrapper and its plain version.
+
+``quantized_matmul`` is the port of the Pallas TPU kernels ``_int8_kernel``
+and ``_int4_kernel`` of ``deepspeed_tpu/ops/pallas/quantized_matmul.py`` as
+the hand-written CUDA kernel ``deepspeed_tpu_torch/csrc/quantized_matmul.cu``:
+``x [m, k] @ dequant(q, scale) [k, n]`` with the weight read at 8 or 4 bits
+and dequantized inside the kernel.
+
+On a CUDA tensor the wrapper launches the kernel or raises, whatever m and
+whatever the shape: the kernel tiles m itself and masks ragged tails, so the
+TPU kernel's m <= 2048 and 128-lane tiling gates have no counterpart. On a
+CPU tensor it computes ``quantized_matmul_reference``, which the tests hold
+against the TPU kernel in interpret mode and ``chip_smoke.py`` holds the
+CUDA kernel against on the card.
+"""
+
+import functools
+import math
+
+import torch
+
+from . import LAUNCH_COUNTS
+from ..quantizer import unpack_int4
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def _check_shapes(x, q, scale, bits):
+    if bits not in (8, 4):
+        raise ValueError(f"quantized_matmul takes bits 8 or 4, got {bits}")
+    if x.dim() != 2 or q.dim() != 2:
+        raise ValueError(f"quantized_matmul takes x [m, k] and q [k, n] (int4: [k/2, n]); got "
+                         f"{tuple(x.shape)}, {tuple(q.shape)}")
+    k, n = x.shape[1], q.shape[1]
+    if q.shape[0] * (2 if bits == 4 else 1) != k:
+        raise ValueError(f"q {tuple(q.shape)} does not hold {k} input rows at {bits} bits")
+    if scale.dim() != 3 or scale.shape[1] != 1 or scale.shape[2] != n or k % scale.shape[0]:
+        raise ValueError(f"scale {tuple(scale.shape)} is not [groups, 1, {n}] with groups "
+                         f"dividing {k}")
+    want = torch.uint8 if bits == 4 else torch.int8
+    if q.dtype != want:
+        raise TypeError(f"{bits}-bit weights are {want}, got {q.dtype}")
+
+
+def dequantized_weight(q, scale, bits):
+    """The fp32 weight [k, n]: float(q) * float(scale[row // g]), rows
+    unpacked from nibbles for bits 4."""
+    qk = unpack_int4(q) if bits == 4 else q
+    k, n = qk.shape
+    groups = scale.shape[0]
+    w = qk.float().reshape(groups, k // groups, n) * scale.float().reshape(groups, 1, n)
+    return w.reshape(k, n)
+
+
+def quantized_matmul_reference(x, q, scale, *, bits):
+    """Plain version: x [m, k] @ the dequantized weight [k, n], with the
+    kernel's arithmetic: the weight rounded to bf16 for bf16 x and kept in
+    fp32 for fp16/fp32 x, fp32 products and sums, the result cast to x's
+    dtype."""
+    _check_shapes(x, q, scale, bits)
+    w = dequantized_weight(q, scale, bits)
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    return (x.float() @ w).to(x.dtype)
+
+
+def rounding_bound(x, q, scale, ref, *, bits):
+    """Per-element bound on |kernel - plain| for 16-bit x, or None for fp32:
+    the weights are the same values on both sides (the products are exact in
+    fp32), so the fp32 sums differ only by their order, at most
+    k * 2^-24 * sum|x||w| each, and each side rounds its result once, at
+    most one unit roundoff u of |ref| each: 1e-5 + 2u|ref| + 2k 2^-24 |x||w|."""
+    u = _UNIT_ROUNDOFF.get(x.dtype)
+    if u is None:
+        return None
+    w = dequantized_weight(q, scale, bits)
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    k = x.shape[1]
+    return 1e-5 + 2 * u * ref.float().abs() + 2 * k * 2.0 ** -24 * (x.float().abs() @ w.abs())
+
+
+_GEMV_MAX_M = 16      # m at or below takes the kernel's split-k GEMV (csrc)
+_GEMV_COLS = 128      # columns per GEMV block
+_GEMV_ROWS = 128      # rows of a GEMV block's k chunk
+_TILES = {torch.bfloat16: 128, torch.float16: 64, torch.float32: 64}  # tiled kernel's m, n tile
+_TILE_SPLIT_ROWS = 256  # the least k range a split of the tiled kernel sweeps
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_splits(m, n, k, dtype, device):
+    """The kernel's k splits on CUDA ``device``. The GEMV (m <= 16): enough
+    (strip, split) blocks for about four per SM (each block's loads in
+    flight cover only part of the memory latency), a split at least one
+    128-row chunk. The tiled kernel (128 x 128 tiles for bf16, 64 x 64
+    else): 1 when its output tiles give every SM two blocks (a long
+    prefill), else enough splits for that, each at least 256 rows deep."""
+    device = torch.device(device)
+    sms = _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+    if m <= _GEMV_MAX_M:
+        want = math.ceil(4 * sms / math.ceil(n / _GEMV_COLS))
+        return max(1, min(want, math.ceil(k / _GEMV_ROWS)))
+    tiles = math.ceil(n / _TILES[dtype]) * math.ceil(m / _TILES[dtype])
+    if tiles >= 2 * sms:
+        return 1
+    return max(1, min(math.ceil(2 * sms / tiles), k // _TILE_SPLIT_ROWS))
+
+
+def _check_kernel_inputs(x, q, scale):
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != x.device:
+            raise ValueError(f"quantized_matmul: {name} on {t.device}, x on {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"quantized_matmul kernel takes fp32/fp16/bf16 x, got {x.dtype}")
+    if scale.dtype != x.dtype:
+        raise TypeError(f"quantized_matmul kernel takes the scale in x's dtype {x.dtype}, got "
+                        f"{scale.dtype}")
+    for name, t in (("x", x), ("q", q), ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"quantized_matmul kernel needs a contiguous {name}; strides "
+                             f"{t.stride()}")
+
+
+def quantized_matmul(x, q, scale, *, bits):
+    """``x [m, k] @ dequant(q, scale) [k, n] -> [m, n]`` in x's dtype. For
+    m <= 16, and for a few output tiles, the kernel splits k and adds fp32
+    partials ([splits, m, n], allocated here) in a second kernel of the same
+    launch.
+
+    ``q``: int8 [k, n] for bits 8, or the nibble-packed uint8 [k/2, n] of
+    ``ops/quantizer.py pack_int4`` for bits 4; ``scale``: [groups, 1, n], the
+    ``quantize_per_channel`` layout, in x's dtype on the card. CPU tensors
+    take the plain version; CUDA tensors launch the kernel on the current
+    stream (no synchronisation) or raise on what it does not take."""
+    _check_shapes(x, q, scale, bits)
+    if all(t.device.type == "cpu" for t in (x, q, scale)):
+        return quantized_matmul_reference(x, q, scale, bits=bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantized_matmul runs on CUDA or CPU tensors, got {x.device}")
+    _check_kernel_inputs(x, q, scale)
+    m, k = x.shape
+    n = q.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    splits = kernel_splits(m, n, k, x.dtype, x.device)
+    work = None
+    if m <= _GEMV_MAX_M or splits > 1:
+        work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    from ..op_builder import load_op
+
+    lib = load_op("quantized_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ds_quantized_matmul(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                      None if work is None else work.data_ptr(),
+                                      _KERNEL_DTYPES[x.dtype], bits, m, n, k,
+                                      k // scale.shape[0], splits, stream)
+    if err:
+        raise RuntimeError(f"quantized_matmul launch failed: cudaError_t {err}")
+    LAUNCH_COUNTS[f"quantized_matmul_int{bits}"] += 1
+    return y

@@ -3,10 +3,11 @@
 import threading
 
 from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FlashAttentionBwdBuilder,  # noqa: F401
-                      FusedCEForwardBuilder, PagedFlashDecodeBuilder)
+                      FusedCEForwardBuilder, PagedFlashDecodeBuilder, QuantizedMatmulBuilder)
 
 ALL_OPS = {b.NAME: b for b in (FlashAttentionBuilder, FlashAttentionBwdBuilder,
-                               FusedCEForwardBuilder, PagedFlashDecodeBuilder)}
+                               FusedCEForwardBuilder, PagedFlashDecodeBuilder,
+                               QuantizedMatmulBuilder)}
 
 _LOADED = {}
 _LOCK = threading.Lock()

@@ -160,7 +160,20 @@ class PagedFlashDecodeBuilder(CUDAOpBuilder):
     def bind(self, lib):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = lib.ds_paged_flash_decode
-        fn.argtypes = [p] * 12 + [i] * 8 + [ll] * 12 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 14 + [i] * 9 + [ll] * 15 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.ds_paged_decode_smem_optin.argtypes = [i]
         lib.ds_paged_decode_smem_optin.restype = ctypes.c_int
+
+
+class QuantizedMatmulBuilder(CUDAOpBuilder):
+    """``csrc/quantized_matmul.cu``: the weight-only int8/int4 dequant-matmul."""
+
+    NAME = "quantized_matmul"
+    SOURCES = ("quantized_matmul.cu",)
+
+    def bind(self, lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn = lib.ds_quantized_matmul
+        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.restype = ctypes.c_int

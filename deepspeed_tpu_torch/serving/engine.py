@@ -19,6 +19,8 @@ optional on-demand growth with preemption back to the queue (the stream
 resumes bitwise: the slot's sampling stream is captured at preemption), and
 decode attention through a gathered dense view (``"gather"``) or the paged
 flash-decode CUDA kernel, which walks the block table itself (``"fused"``).
+With ``kv_pool.kv_dtype="int8"`` the pool holds int8 rows and one fp32
+scale per (token, head), and every pool operation carries the scales.
 
 Sampling streams: JAX keys each request with threefry and splits every
 slot's key once per decode step. Threefry bits are not reproduced; a slot's
@@ -109,6 +111,10 @@ class ServingEngine:
         # paged KV pool (kv_pool.enabled): block allocator + prefix cache on
         # the host, the pool and the block table on the device
         self.paged = bool(self.cfg.kv_pool.enabled)
+        # kv_pool.kv_dtype="int8": int8 rows with one fp32 scale per (token,
+        # head); every pool operation carries the scales beside the rows
+        self.int8_pool = self.paged and self.cfg.kv_pool.kv_dtype == "int8"
+        self._pool_keys = ("k", "v", "k_scale", "v_scale") if self.int8_pool else ("k", "v")
         self.pool_mgr = KVPoolManager(self.cfg.kv_pool, self.n_slots,
                                       self.max_len) if self.paged else None
         # decode-attention backend: "dense" (no paging), "gather" (dense
@@ -125,7 +131,7 @@ class ServingEngine:
 
                 ok, reason = fused_decode_supported(
                     engine.module.config, self.pool_mgr.block_size,
-                    device=self.device, dtype=engine.dtype)
+                    device=self.device, dtype=torch.int8 if self.int8_pool else engine.dtype)
                 if not ok:
                     log_dist(
                         "ServingEngine: kv_pool.attention_backend='fused' "
@@ -175,6 +181,7 @@ class ServingEngine:
                 f"ServingEngine: {self.n_slots} slots, paged KV pool "
                 f"{mgr.allocatable} blocks x {mgr.block_size} tok = {cap} "
                 f"tokens ({cap / self.max_len:.1f} max-len-equivalent slots, "
+                f"kv_dtype={self.cfg.kv_pool.kv_dtype or 'engine'}, "
                 f"attention={self.attn_backend}, "
                 f"prefix_cache={'on' if self.cfg.kv_pool.prefix_cache else 'off'}), "
                 f"queue depth {self.cfg.max_queue_depth}, clock={clock_name}",
@@ -204,7 +211,8 @@ class ServingEngine:
         if self.paged:
             mgr = self.pool_mgr
             cache = init_paged_cache(cfg, mgr.n_blocks, mgr.block_size,
-                                     self.engine.dtype, device=dev)
+                                     self.engine.dtype, self.cfg.kv_pool.kv_dtype or None,
+                                     device=dev)
             # every slot starts parked on the garbage block: a dead decode
             # write can never land in an allocatable block
             cache["table"] = torch.full((s, mgr.blocks_per_slot), GARBAGE_BLOCK,
@@ -225,7 +233,7 @@ class ServingEngine:
         })
 
     def _pool(self):
-        return {"k": self._state["k"], "v": self._state["v"]}
+        return {name: self._state[name] for name in self._pool_keys}
 
     # ------------------------------------------------------- pool operations
     # The JAX engine's jitted pool programs, as eager in-place updates.

@@ -6,11 +6,12 @@
 ROADMAP_ITEMS = {
     "A.2": "serving core: ServingEngine, paged KV pool, paged_flash_decode",
     "A.3": "serving fleet and observability: router, telemetry, health, monitors",
-    "A.4": "weight-only quantization: quantizer, quantized_matmul",
+    "A.4": "weight-only quantization and the int8 KV pool (ported)",
     "A.5": "checkpoints and importers: load_checkpoint, module_inject",
     "A.7": "distribution: tensor/expert/pipeline/sequence parallelism, ZeRO, MoE",
     "A.8": "offload: ZeRO-Offload and ZeRO-Infinity to host memory and NVMe",
-    "A.9": "the rest: encoders, banded local attention, block-sparse, audits",
+    "A.9": "the rest: encoders, banded local attention, audits",
+    "A.10": "block-sparse attention and its kernels",
 }
 
 

@@ -381,3 +381,163 @@ def test_training_engine_on_the_card(cuda):
             "flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
             "fused_ce_forward": 1}
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# -- the weight-only quantized matmul and the int8 paged pool ----------------------
+
+def _qmm_inputs(m, k, n, group, bits, dtype, device, seed=0):
+    """x [m, k] and a weight quantized by ``quantize_per_channel`` (packed for
+    bits 4), with the scale in x's dtype as the model hands it over."""
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, quantize_per_channel
+
+    r = np.random.RandomState(seed)
+    x = torch.tensor(r.randn(m, k), dtype=torch.float32).to(device, dtype)
+    w = torch.tensor(r.randn(k, n) * 0.02, dtype=torch.float32, device=device)
+    q, scale = quantize_per_channel(w, bits=bits, group_size=group)
+    if bits == 4:
+        q = pack_int4(q)
+    return x, q, scale.to(dtype)
+
+
+def _assert_qmm_matches_plain(y, x, q, scale, bits):
+    """fp32: summation order only, 2e-5 + 2e-5 |plain|. 16-bit: within
+    ``rounding_bound`` (both sides dequantize to the same weights; each sum
+    in its own order and one output rounding on each side)."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (quantized_matmul_reference,
+                                                               rounding_bound)
+
+    ref = quantized_matmul_reference(x, q, scale, bits=bits)
+    assert y.dtype == x.dtype and y.shape == ref.shape
+    diff = (y.float() - ref.float()).abs()
+    if x.dtype == torch.float32:
+        limit = 2e-5 + 2e-5 * ref.float().abs()
+    else:
+        limit = rounding_bound(x, q, scale, ref, bits=bits)
+    worst = (diff / limit).max().item()
+    assert worst <= 1.0, f"max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", [
+    (8, 4096, 11008, 64),      # Llama-7B up/gate projection, decode
+    (1, 256, 384, 64),         # one row
+    (40, 320, 200, 64),        # m not a multiple of 16, n not of 64
+    (517, 1024, 1000, 128),    # several m tiles, ragged m and n
+    (5, 200, 72, 40),          # k tail (200 is not a multiple of the k step)
+    (33, 210, 130, 35),        # an odd group (int4: the TPU kernel refused it)
+    (3, 210, 130, 35),         # the decode GEMV: odd group, n not a multiple of 4
+    (16, 1024, 4096, 64),      # the GEMV's largest m, several k splits
+    (64, 4096, 4096, 64),      # a short prefill: few tiles, k split across blocks
+], ids=["llama7b-decode", "one-row", "ragged-mn", "multi-tile", "k-tail", "odd-group",
+        "gemv-ragged", "gemv-m16", "split-tiles"])
+def test_qmm_kernel_matches_plain(cuda, dtype, bits, shape):
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+
+    m, k, n, group = shape
+    x, q, scale = _qmm_inputs(m, k, n, group, bits, dtype, cuda)
+    name = f"quantized_matmul_int{bits}"
+    before = LAUNCH_COUNTS[name]
+    y = quantized_matmul(x, q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS[name] == before + 1
+    _assert_qmm_matches_plain(y, x, q, scale, bits)
+
+
+def test_qmm_kernel_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+
+    x, q, scale = _qmm_inputs(4, 128, 96, 64, 8, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="scale"):
+        quantized_matmul(x, q, scale.float(), bits=8)          # scale not in x's dtype
+    wide = torch.empty((2, 1, 192), dtype=scale.dtype, device=cuda)
+    wide[:, :, ::2] = scale
+    with pytest.raises(ValueError, match="contiguous"):
+        quantized_matmul(x, q, wide[:, :, ::2], bits=8)         # a strided scale
+    with pytest.raises(TypeError, match="uint8"):
+        quantized_matmul(x, q[:64], scale, bits=4)             # int8 storage for bits 4
+    with pytest.raises(ValueError, match="input rows"):
+        quantized_matmul(x[:, :64], q, scale, bits=8)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linear_launches_at_any_m(cuda, bits):
+    """linear_apply on a quantized linear reaches the kernel at a prefill m
+    above the TPU kernel's 2048 gate, with the bias added after."""
+    from deepspeed_tpu_torch.models.layers import linear_apply
+
+    x, q, scale = _qmm_inputs(2100, 256, 192, 64, bits, torch.bfloat16, cuda)
+    bias = torch.randn(192, device=cuda)
+    p = {"kernel_q4" if bits == 4 else "kernel_q": q, "kernel_scale": scale.float(),
+         "bias": bias}
+    before = LAUNCH_COUNTS[f"quantized_matmul_int{bits}"]
+    y = linear_apply(p, x.reshape(3, 700, 256), compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS[f"quantized_matmul_int{bits}"] == before + 1
+    assert y.shape == (3, 700, 192) and y.dtype == torch.bfloat16
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul_reference
+
+    # the product is held to the plain version by test_qmm_kernel_matches_plain;
+    # here a bf16 sum and a bf16 bias add: up to one ulp of each, 2^-6 relative
+    ref = quantized_matmul_reference(x, q, scale, bits=bits) + bias.to(torch.bfloat16)
+    torch.testing.assert_close(y.reshape(2100, 192).float(), ref.float(), rtol=2 ** -6, atol=1e-2)
+
+
+def _int8_pool(args):
+    """``_paged_inputs`` with its pool quantized to int8 + per-(token, head)
+    scales (the garbage block's 1e4 poison survives as 127 * 1e4 / 127)."""
+    from deepspeed_tpu_torch.comm.collectives import quantize_blockwise
+
+    q, k_new, v_new, kc, vc, table, pos = args
+    kq, ks = quantize_blockwise(kc.float(), block=kc.shape[-1])
+    vq, vs = quantize_blockwise(vc.float(), block=vc.shape[-1])
+    return (q, k_new, v_new, kq, vq, table, pos), dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", [
+    (8, 32, 32, 128, 16, 128, False, None),   # Llama-7B decode, the kernel's own splits
+    (4, 32, 8, 128, 16, 32, True, 4),         # GQA 32/8, alibi, 4 splits
+    (3, 6, 2, 64, 8, 8, True, 1),             # hq 3, head_dim 64, one split
+], ids=["llama7b", "gqa-alibi", "hq3-one-split"])
+def test_paged_int8_kernel_matches_plain(cuda, dtype, shape):
+    """The int8 pool against the plain version: fp32 within 2e-5 + 2e-5
+    |plain|; 16-bit within ``rounding_bound`` on the dequantized values."""
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import (
+        paged_flash_decode, paged_flash_decode_reference, rounding_bound)
+
+    s_dim, n_heads, kvh, dh, bs, nb_cols, alibi, splits = shape
+    args, scales = _int8_pool(_paged_inputs(s_dim, n_heads, kvh, dh, bs, nb_cols, dtype, cuda))
+    slopes = (0.5 ** torch.arange(1, n_heads + 1, dtype=torch.float32, device=cuda)
+              if alibi else None)
+    before = dict(LAUNCH_COUNTS)
+    out = paged_flash_decode(*args, **scales, alibi_slopes=slopes, kv_splits=splits)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["paged_flash_decode_int8"] == before["paged_flash_decode_int8"] + 1
+    assert LAUNCH_COUNTS["paged_flash_decode"] == before["paged_flash_decode"]
+    ref = paged_flash_decode_reference(*args, **scales, alibi_slopes=slopes,
+                                       kv_splits=splits or 4)
+    assert out.dtype == dtype and out.shape == ref.shape
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        limit = 2e-5 + 2e-5 * ref.float().abs()
+    else:
+        limit = 1e-5 + rounding_bound(*args, ref, **scales, alibi_slopes=slopes)
+    worst = (diff / limit).max().item()
+    assert worst <= 1.0, f"max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+def test_paged_int8_kernel_refuses_bad_scales(cuda):
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import paged_flash_decode
+
+    args, scales = _int8_pool(_paged_inputs(2, 4, 4, 64, 8, 4, torch.bfloat16, cuda))
+    ks, vs = scales["k_scale"], scales["v_scale"]
+    with pytest.raises(TypeError, match="fp32"):
+        paged_flash_decode(*args, k_scale=ks.half(), v_scale=vs.half())
+    strided = lambda s: torch.cat([s, s], dim=-1)[..., :1]
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_flash_decode(*args, k_scale=strided(ks), v_scale=strided(vs))
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        paged_flash_decode(*args)

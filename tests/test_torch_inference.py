@@ -155,11 +155,23 @@ def test_same_json_same_values_and_overflow_error():
         te.generate(prompt, max_new_tokens=8)
 
 
-@pytest.mark.parametrize("block", [
-    {"serving": {"n_slots": 4, "speculative": {"enabled": True}}}, {"telemetry": {"enabled": True}},
-    {"quant": {"enabled": True}}, {"tensor_parallel": {"tp_size": 2}},
+@pytest.mark.parametrize("block,ported", [
+    ({"serving": {"n_slots": 4, "speculative": {"enabled": True}}}, False),
+    ({"telemetry": {"enabled": True}}, False),
+    ({"quant": {"enabled": True, "bits": 4, "group_size": 32}}, True),
+    ({"tensor_parallel": {"tp_size": 2}}, False),
 ], ids=["serving", "telemetry", "quant", "tp"])
-def test_unported_blocks_raise_naming_the_roadmap(block):
+def test_unported_blocks_raise_naming_the_roadmap(block, ported):
+    """Each unported block raises naming its ROADMAP item; a block ported
+    since (``quant``, weight-only int8/int4) parses to the JAX package's
+    values."""
+    if ported:
+        from deepspeed_tpu.inference.config import DeepSpeedInferenceConfig as JaxConfig
+
+        tc, jc = DeepSpeedInferenceConfig.from_dict(block), JaxConfig.from_dict(block)
+        for k in ("enabled", "bits", "group_size"):
+            assert getattr(tc.quant, k) == getattr(jc.quant, k), k
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
         DeepSpeedInferenceConfig.from_dict(block)
     # blocks that leave their feature off parse

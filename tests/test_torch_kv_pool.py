@@ -104,3 +104,51 @@ def test_geometry_errors_and_auto_size_match_jax():
     assert t.n_blocks == j.n_blocks == 3 * 8 + 1
     assert t.blocks_per_slot == j.blocks_per_slot == 8
     assert GARBAGE_BLOCK == 0 and 0 not in t._free
+
+
+def test_kv_dtype_int8_parses_like_jax():
+    """``kv_dtype="int8"`` (the int8 pool) parses to JAX's value; any other
+    non-empty kv_dtype is a ConfigError on both sides."""
+    block = {"enabled": True, "kv_dtype": "int8"}
+    assert KVPoolConfig.from_dict(block).kv_dtype == JaxKVPoolConfig(**block).kv_dtype == "int8"
+    with pytest.raises(JaxConfigError):
+        JaxKVPoolConfig(enabled=True, kv_dtype="int4")
+    with pytest.raises(ConfigError):
+        KVPoolConfig.from_dict({"enabled": True, "kv_dtype": "int4"})
+
+
+def test_int8_pool_block_ops_match_jax():
+    """The int8 pool's block operations on the same dense cache: insert
+    (quantize per token and head), the prefix seed (dequantize), the scrub
+    (payload and scales to zero), each bitwise equal to JAX's."""
+    import jax.numpy as jnp
+    import torch
+
+    from deepspeed_tpu.models import decoding as jdec
+    from deepspeed_tpu_torch.models import decoding as tdec
+    from tests.torch_port_util import jax_model, port_model
+
+    jcfg, tcfg = jax_model().config, port_model().config
+    bs, nb = 8, 6
+    dense = np.random.RandomState(3).randn(tcfg.n_layers, 1, 4 * bs, tcfg.kv_heads,
+                                           tcfg.head_dim).astype(np.float32)
+    dense[:, :, 5] = 0.0                                  # an all-zero token row
+    jpool = jdec.init_paged_cache(jcfg, nb, bs, jnp.float32, "int8")
+    for i, b in enumerate((2, 4, 5)):
+        jpool = jdec.insert_block_kv(jpool, {"k": jnp.asarray(dense), "v": jnp.asarray(-dense)},
+                                     b, i * bs, bs)
+    tpool = tdec.init_paged_cache(tcfg, nb, bs, torch.float32, "int8")
+    tdec.insert_block_kv(tpool, {"k": torch.tensor(dense), "v": torch.tensor(-dense)},
+                         [2, 4, 5], 0, bs)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(tpool[name].numpy(), np.asarray(jpool[name]), name)
+    row = [4, 2, 0, 5]
+    jseed = jdec.gather_slot_cache(jcfg, jpool, np.asarray(row), jnp.float32)
+    tseed = tdec.gather_slot_cache(tcfg, tpool, row, torch.float32)
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(tseed[name].numpy(), np.asarray(jseed[name]), name)
+    jpool = jdec.reset_block_kv(jpool, 4)
+    tdec.reset_block_kv(tpool, 4)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(tpool[name].numpy(), np.asarray(jpool[name]), name)
+        assert not tpool[name][:, 4].any()

@@ -325,10 +325,17 @@ def test_init_inference_serve_frontend():
     ({"tenants": {"enabled": True}}, "A.3"),
     ({"degraded": {"enabled": True}}, "A.3"),
     ({"policy": "weighted_fair"}, "A.3"),
-    ({"kv_pool": {"enabled": True, "kv_dtype": "int8"}}, "A.4"),
+    ({"kv_pool": {"enabled": True, "kv_dtype": "int8"}}, None),
 ], ids=["router", "speculative", "migration", "pools", "rebalance", "autoscaler",
         "tenants", "degraded", "weighted_fair", "int8"])
 def test_unported_serving_blocks_raise(block, item):
+    """Each unported block raises naming its ROADMAP item; a block whose
+    feature has been ported since (item None: the int8 KV pool) parses to
+    the JAX package's values."""
+    if item is None:
+        cfg = DeepSpeedInferenceConfig.from_dict({"serving": block}).serving
+        assert cfg.kv_pool.kv_dtype == JaxServingConfig(**block).kv_pool.kv_dtype == "int8"
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         DeepSpeedInferenceConfig.from_dict({"serving": block})
 
@@ -409,3 +416,44 @@ def test_unsupported_shape_serves_through_gather(engines, monkeypatch):
     list(sv.serve([req]))
     assert req.tokens == _generate(te, req.prompt, 5)
     assert sv.metrics.snapshot()["kv_pool"]["attention_backend"] == "gather"
+
+
+INT8 = {"enabled": True, "block_size": 16, "kv_dtype": "int8"}
+
+
+def test_int8_pool_streams_and_snapshot_match_jax(engines):
+    """The int8 paged pool through the gather backend: 6 staggered requests,
+    two of them sharing a 16-token prefix (a copy-on-write hit on quantized
+    blocks), freed blocks scrubbed (their scales too). Greedy streams and
+    the virtual-clock snapshot equal JAX's on the same backend."""
+    shared = np.random.RandomState(9).randint(0, 64, (16,)).astype(np.int32)
+    spec = _staggered(0, 4) + [(np.concatenate([shared, np.full(3 + i, i, np.int32)]), 5,
+                                2.0 + i, {}) for i in range(2)]
+    (jsv, jreqs, _), (tsv, treqs, _) = _serve_both(
+        engines, spec, kv_pool={**INT8, "attention_backend": "gather"})
+    assert tsv.int8_pool and tsv._state["k"].dtype == torch.int8
+    assert tsv.pool_mgr.stats()["prefix_hit_requests"] >= 1
+    assert all(r.state is RequestState.FINISHED for r in treqs)
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.tokens == [int(t) for t in jr.tokens]
+    snap = tsv.metrics.snapshot()
+    assert snap == jsv.metrics.snapshot()
+    assert snap["kv_pool"]["attention_backend"] == "gather"
+
+
+def test_int8_pool_growth_preemption_matches_jax(engines):
+    """The fused backend on a tight int8 pool with on-demand growth: blocks
+    grow, the pool runs out, requests are preempted and resume; the
+    preemptions, greedy streams and snapshot equal JAX's."""
+    rng = np.random.RandomState(4)
+    spec = [(rng.randint(0, 64, (int(rng.randint(8, 14)),)).astype(np.int32), 30, 0.0, {})
+            for _ in range(3)]
+    tight = {**INT8, "block_size": 8, "n_blocks": 9, "on_demand_growth": True,
+             "attention_backend": "fused"}
+    (jsv, jreqs, _), (tsv, treqs, _) = _serve_both(engines, spec, kv_pool=tight, n_slots=3)
+    assert tsv.attn_backend == "fused"
+    assert tsv.pool_mgr.preempted_requests > 0
+    assert [r.preemptions for r in treqs] == [r.preemptions for r in jreqs]
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.tokens == [int(t) for t in jr.tokens]
+    assert tsv.metrics.snapshot() == jsv.metrics.snapshot()
