@@ -42,7 +42,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
      with ``generate()`` over the same requests. Each forward launches 7
      quantized matmuls per layer, each decode step one int8 paged decode per
      layer and none of the 16-bit pool's; a quantized matmul shape that
-     phase 2 did not check fails the run.
+     phase 2 did not check fails the run;
+  8. the block-sparse training path: phase 6's model and config with
+     ``attention_impl="block_sparse"`` (the fixed pattern of 128-token blocks,
+     4 local and 1 global), 2 warm-up and 8 timed ``train_batch`` steps and
+     one ``eval_batch``, with the launch counts read around every step (24
+     block-sparse forward, 24 backward and 1 CE launch, no flash launch) and
+     one more step under the profiler. Phase 2 holds the block-sparse
+     forward and backward against their plain versions at its layers, at
+     the same tokens as b 3 x s 4096 (beside the dense flash kernels) and at
+     every pattern, block 16-128 and dtype at small sizes; phase 3 trains 2
+     layers of it at GPT-2-medium width on the card against the CPU port.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -99,6 +109,12 @@ TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH, "bf16": {"enabled": True},
                 "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}},
                 "zero_optimization": {"stage": 0}, "gradient_clipping": 1.0,
                 "steps_per_print": 1000000}
+# phase 8: phase 6's model and config with block-sparse attention, the JAX
+# package's default pattern (sparsity_config.py:56-77): fixed, 128-token
+# blocks, 4 local and 1 global (24 of the 36 causal blocks at seq 1024)
+SPARSE_ATTENTION = {"attention_impl": "block_sparse", "sparse_pattern": "fixed",
+                    "sparse_block": 128,
+                    "sparse_pattern_config": {"num_local_blocks": 4, "num_global_blocks": 1}}
 
 
 def log(msg):
@@ -784,6 +800,15 @@ def train_model_config():
                        fused_ce=True, fused_ce_impl="pallas")
 
 
+def train_sparse_model_config():
+    """Phase 8's model: phase 6's GPT-2 medium with block-sparse attention in
+    the JAX package's default pattern (``SPARSE_ATTENTION``)."""
+    from deepspeed_tpu_torch.models import gpt2_config
+
+    return gpt2_config("medium", vocab_size=TRAIN_VOCAB, remat=False, fused_ce=True,
+                       fused_ce_impl="pallas", **SPARSE_ATTENTION)
+
+
 def check_limit(name, diff, limit, tol):
     """Share of the limit used (above 1 is a miss); raises on a miss."""
     use = (diff / limit).max().item()
@@ -956,31 +981,198 @@ def phase_train_kernels(torch, F):
     return out
 
 
-def phase_train_card_vs_cpu(torch):
+def kept_pairs(layout, block, s_q, s_kv, causal):
+    """The (query, key) score elements a block layout keeps: every element of
+    each kept block, less those past the causal diagonal (a diagonal
+    128-block keeps 128 * 129 / 2)."""
+    import numpy as np
+
+    qb, kb = np.nonzero(layout)
+    if not causal:
+        return int(len(qb)) * block * block
+    r = np.arange(block)
+    # per kept block: sum over its rows of the columns at or below the diagonal
+    first = kb[:, None] * block - (qb[:, None] * block + r[None, :] + (s_kv - s_q))
+    return int(np.clip(1 - first, 0, block).sum())
+
+
+def phase_sparse_kernels(torch, F):
+    """The block-sparse forward (with lse) and backward against their plain
+    versions: at phase 8's layers (b 12, s 1024, h 16, d 64, the fixed
+    pattern of 128-token blocks, 4 local and 1 global, causal, bf16; and
+    fp32), at the same tokens as one long sequence (b 3, s 4096, where the
+    port's dense flash kernels are timed beside them) and, untimed, every
+    pattern causal and not at blocks 16/32/64/128 in bf16, fp16 and fp32 at
+    small sizes. The timed cases carry the plain versions' time, the bound
+    (the kept score elements' operations against the bytes) and SDPA
+    forward and backward with the layout's token mask as the yardstick."""
+    import itertools
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd, block_sparse_attention_fwd_reference, bwd_rounding_bound,
+        rounding_bound)
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
+                                                              flash_attention_fwd)
+
+    h, d = 16, 64
+    timed = [("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.bfloat16),
+             ("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.float32),
+             ("long-s4096", TRAIN_BATCH * TRAIN_SEQ // 4096, 4096, h, d, "fixed", 128, True,
+              torch.bfloat16)]
+    # head_dim alternates 64 / 128 over the cases
+    breadth = [(f"{pat}-b{blk}-{'causal' if causal else 'noncausal'}", 1, 256, 2,
+                (64, 128)[i % 2], pat, blk, causal, dtype)
+               for i, (pat, blk, causal, dtype) in enumerate(itertools.product(
+                   SA.PATTERNS, (16, 32, 64, 128), (True, False),
+                   (torch.bfloat16, torch.float16, torch.float32)))]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    fwd_out, bwd_out = [], []
+    checked = set()
+    for name, b, s, hh, dd, pattern, block, causal, dtype in timed + breadth:
+        kwargs = SPARSE_ATTENTION["sparse_pattern_config"] if (name, dtype) in {
+            (t[0], t[-1]) for t in timed} else {}
+        attn = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kwargs), s,
+                                       causal=causal, device="cuda")
+        lists = attn.lists
+        if name == "main" and dtype == torch.bfloat16:
+            checked.add((b, s, hh, hh, dd, attn.layout.tobytes()))
+        q, k, v, do = (rnd(b, s, hh, dd).to(dtype) for _ in range(4))
+        o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True)
+        ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal,
+                                                            return_lse=True)
+        grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal)
+        refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
+                                                    causal=causal)
+        torch.cuda.synchronize()
+        label = f"block-sparse {name} {dtype}"
+        if dtype == torch.float32:
+            tol = f"{TOL_FP32[0]:g} + {TOL_FP32[1]:g}|plain|"
+            limit = TOL_FP32[0] + TOL_FP32[1] * ref.float().abs()
+            limits = [TOL_FP32[0] + TOL_FP32[1] * r.float().abs() for r in refs]
+        else:
+            tol = f"{ATOL_16:g} + rounding bound"
+            limit = ATOL_16 + rounding_bound(q, k, v, ref, lists, causal=causal)
+            limits = [ATOL_16 + x for x in bwd_rounding_bound(q, k, v, ref, ref_lse, do, refs,
+                                                              lists, causal=causal)]
+        use = check_limit(f"{label} fwd", (o.float() - ref.float()).abs(), limit, tol)
+        lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
+                              1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+        errs, uses = {}, {}
+        for i, gname in enumerate(("dq", "dk", "dv")):
+            diff = (grads[i].float() - refs[i].float()).abs()
+            uses[gname] = check_limit(f"{label} {gname}", diff, limits[i], tol)
+            errs[gname] = diff.max().item()
+        common = dict(case=name, dtype=str(dtype).split(".")[1], b=b, s=s, h=hh, d=dd,
+                      pattern=pattern, block=block, causal=causal,
+                      main_path=name == "main" and dtype == torch.bfloat16,
+                      kept_blocks=int(attn.layout.sum()), max_active=lists.max_a,
+                      density=attn.density, tolerance=tol)
+        f = dict(common, max_abs_err=(o.float() - ref.float()).abs().max().item(),
+                 lse_max_abs_err=(lse - ref_lse).abs().max().item(), limit_use=use,
+                 lse_limit_use=lse_use)
+        g = dict(common, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                 limit_use=max(uses.values()), limit_use_by_grad=uses)
+        del limit, limits, grads, refs
+        if (name, dtype) in {(t[0], t[-1]) for t in timed}:
+            kept = kept_pairs(attn.layout, block, s, s, causal)
+            peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+            size = q.numel() * q.element_size()
+            # forward: 2 products of 2 d per kept element; q, k, v read, o and lse
+            # written. backward: 5 products; q, k, v, o, dO, lse read, dq, dk, dv written
+            for r, flops, n_bytes in ((f, 4 * dd * kept * b * hh, 4 * size + lse.numel() * 4),
+                                      (g, 10 * dd * kept * b * hh, 8 * size + lse.numel() * 4)):
+                t_ops, t_bytes = flops / peak, n_bytes / H100_BYTES
+                r.update(kept_elements_per_head=kept, flops=flops, bytes=n_bytes,
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+            f["ms"] = time_ms(lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
+                                                                 return_lse=True), 20)
+            f["plain_ms"] = time_ms(lambda: block_sparse_attention_fwd_reference(
+                q, k, v, lists, causal=causal, return_lse=True), 3)
+            g["ms"] = time_ms(lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
+                                                                 causal=causal), 20)
+            g["plain_ms"] = time_ms(lambda: block_sparse_attention_bwd_reference(
+                q, k, v, o, lse, do, lists, causal=causal), 3)
+            # the yardstick: SDPA with the token-level mask of (layout AND causal)
+            mask = np.kron(attn.layout, np.ones((block, block), bool))
+            if causal:
+                mask &= np.tril(np.ones((s, s), bool))
+            mask = torch.as_tensor(mask, device="cuda")
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            f["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 20)
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            gt = do.transpose(1, 2)
+            g["library_ms"] = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt,
+                                                                  retain_graph=True), 20)
+            if name.startswith("long"):
+                # the port's dense flash kernels on the same tensors: what sparsity buys
+                fo, flse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+                f["flash_ms"] = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                                    return_lse=True), 10)
+                g["flash_ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, fo, flse, do,
+                                                                    causal=True), 10)
+                del fo, flse
+            for r, part in ((f, "fwd"), (g, "bwd")):
+                r["tflops"] = r["flops"] / r["ms"] / 1e9
+                extra = f"  dense flash {r['flash_ms']:.4f} ms" if "flash_ms" in r else ""
+                log(f"  block-sparse {part} {name:10s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
+                    f"({r['limit_use']:.2f} of the limit)  kernel {r['ms']:.4f} ms  plain "
+                    f"{r['plain_ms']:.4f} ms  sdpa+mask {r['library_ms']:.4f} ms  bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s"
+                    f"{extra}")
+            del mask, qt, kt, vt, sdpa, gt
+        fwd_out.append(f)
+        bwd_out.append(g)
+        del q, k, v, do, o, lse, ref, ref_lse
+    worst = max(max(r["limit_use"] for r in fwd_out), max(r["limit_use"] for r in bwd_out))
+    log(f"  block-sparse breadth: {len(breadth)} cases (5 patterns x blocks 16/32/64/128 x "
+        f"causal/non-causal x bf16/fp16/fp32), forward, lse, dq, dk, dv each within its "
+        f"limit (worst {worst:.2f} of a limit)")
+    torch.cuda.empty_cache()
+    return {"fwd": fwd_out, "bwd": bwd_out}, checked
+
+
+def phase_train_card_vs_cpu(torch, sparse=False):
     """Training on the card against the CPU port: GPT-2-medium width (d 1024,
     16 heads, vocab 50304) with 2 layers in fp32, the same seeded weights on
-    both, batch 2 x seq 256. One forward/backward: the loss and the grads of
-    wte, a block kernel and ln_f; then the losses of 3 ``train_batch`` steps."""
+    both, batch 2 x seq 256 (flash attention) or, with ``sparse``, batch 1 x
+    seq 1024 with phase 8's block-sparse layout (the fixed pattern, 128-token
+    blocks, 24 of 36 causal blocks kept). One forward/backward: the loss and
+    the grads of wte, a block kernel and ln_f; then the losses of 3
+    ``train_batch`` steps."""
     import numpy as np
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM, gpt2_config
     from deepspeed_tpu_torch.models.layers import flatten_tree, tree_map
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
 
+    attention = dict(SPARSE_ATTENTION) if sparse else {"attention_impl": "flash"}
+    batch, seq = (1, TRAIN_SEQ) if sparse else (2, 256)
+    kernel = "block_sparse_attention_fwd" if sparse else "flash_attention_fwd"
     cfg = lambda: gpt2_config("medium", vocab_size=TRAIN_VOCAB, n_layers=2,
-                              attention_impl="flash", fused_ce_impl="pallas")
-    ds = {"train_batch_size": 2, "seed": 5, "gradient_clipping": 1.0,
+                              fused_ce_impl="pallas", **attention)
+    ds = {"train_batch_size": batch, "seed": 5, "gradient_clipping": 1.0,
           "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
     card, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg()), config=ds)
     cpu, *_ = deepspeed_tpu_torch.initialize(
         model=CausalLM(cfg()), config=ds, device="cpu",
         model_parameters=tree_map(lambda t: t.detach().cpu(), card.params))
     rng = np.random.RandomState(6)
-    batches = [{"input_ids": rng.randint(0, TRAIN_VOCAB, (2, 256))} for _ in range(4)]
+    batches = [{"input_ids": rng.randint(0, TRAIN_VOCAB, (batch, seq))} for _ in range(4)]
     losses = {}
     for name, eng in (("card", card), ("cpu", cpu)):
+        before = LAUNCH_COUNTS[kernel]
         losses[name] = [eng.forward(batches[0]).item()]
         eng.backward()
+        if (LAUNCH_COUNTS[kernel] - before > 0) != (name == "card"):
+            raise AssertionError(f"{name}: {LAUNCH_COUNTS[kernel] - before} {kernel} launches")
     grads = {}
     for key in ("wte/weight", "blocks/mlp/fc/kernel", "ln_f/scale"):
         g_card = flatten_tree(card.params)[key].grad.cpu()
@@ -1006,33 +1198,46 @@ def phase_train_card_vs_cpu(torch):
     return {"losses": losses, "grads": grads}
 
 
-def model_flops_per_step(cfg, tokens, seq):
+def model_flops_per_step(cfg, tokens, seq, pairs=None):
     """6 N T (forward 2, backward 4 operations per parameter and token, the
     tied head's GEMM included) plus the attention's 12 L d h pairs (QK^T and
-    PV: 4 d per allowed causal pair forward, twice that backward)."""
-    pairs = seq * (seq + 1) // 2
+    PV: 4 d per allowed pair forward, twice that backward); ``pairs`` are
+    the causal pairs of a sequence unless given (a sparse layout's kept
+    elements)."""
+    if pairs is None:
+        pairs = seq * (seq + 1) // 2
     return (6 * cfg.num_params() * tokens
             + 12 * cfg.n_layers * cfg.head_dim * cfg.n_heads * pairs * (tokens // seq))
 
 
-def phase_training(torch, checked):
-    """Phase 6: ``initialize`` -> ``train_batch`` on full GPT-2 medium at
-    bench.py's shape and config, on one fixed batch drawn from seed 0:
+def phase_training(torch, checked, sparse=False):
+    """Phase 6 (or, with ``sparse``, phase 8): ``initialize`` ->
+    ``train_batch`` on full GPT-2 medium at bench.py's shape and config (phase
+    8: with block-sparse attention), on one fixed batch drawn from seed 0:
     TRAIN_WARMUP warm-up steps, then TRAIN_STEPS timed steps, each ended by
     a host read of its loss; the launch counts read around every step; one
-    more step under torch.profiler."""
+    more step under torch.profiler. Phase 8 also takes one ``eval_batch``
+    (forward kernels only). The attention and CE shapes must have been held
+    against the plain versions in phase 2."""
     import numpy as np
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.transformer import _block_sparse_attn
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
 
-    cfg = train_model_config()
+    cfg = train_sparse_model_config() if sparse else train_model_config()
+    L = cfg.n_layers
     shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
-    if shape not in checked["flash"] or (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model,
-                                         cfg.vocab_size) not in checked["ce"]:
-        raise AssertionError(f"phase 6's shapes {shape} were not held against the plain "
-                             f"versions in phase 2 ({checked})")
+    pairs = None
+    if sparse:
+        layout = _block_sparse_attn(cfg, TRAIN_SEQ, torch.device("cuda")).layout
+        pairs = kept_pairs(layout, cfg.sparse_block, TRAIN_SEQ, TRAIN_SEQ, cfg.causal)
+        shape = shape + (layout.tobytes(),)
+    if shape not in checked["block_sparse" if sparse else "flash"] or (
+            TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.vocab_size) not in checked["ce"]:
+        raise AssertionError(f"phase {8 if sparse else 6}'s shapes {shape[:5]} were not held "
+                             f"against the plain versions in phase 2")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=TRAIN_CONFIG)
@@ -1041,8 +1246,11 @@ def phase_training(torch, checked):
         f"compute) in {time.perf_counter() - t0:.3f} s")
     batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size,
                                                             (TRAIN_BATCH, TRAIN_SEQ))}
-    expected = {"flash_attention_fwd": cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-                "fused_ce_forward": 1}
+    if sparse:
+        expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
+                    "fused_ce_forward": 1, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    else:
+        expected = {"flash_attention_fwd": L, "flash_attention_bwd": L, "fused_ce_forward": 1}
     reset_launch_counts()
     losses, step_ms = [], []
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -1055,6 +1263,16 @@ def phase_training(torch, checked):
             raise AssertionError(f"step {step}: launches {delta}, expected {expected}")
         losses.append(loss)
         log(f"  step {step}: loss {loss:.6f}  {step_ms[-1]:.1f} ms")
+    eval_loss = None
+    if sparse:
+        before = dict(LAUNCH_COUNTS)
+        eval_loss = float(engine.eval_batch(batch=batch))
+        delta = {k: LAUNCH_COUNTS[k] - before[k] for k in expected}
+        want = dict(expected, block_sparse_attention_bwd=0)
+        if delta != want or not math.isfinite(eval_loss):
+            raise AssertionError(f"eval_batch: loss {eval_loss}, launches {delta}, expected "
+                                 f"{want}")
+        log(f"  eval_batch: loss {eval_loss:.6f}; launches {delta}")
     launches = dict(LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -1063,16 +1281,24 @@ def phase_training(torch, checked):
     median_ms = timed[len(timed) // 2] if len(timed) % 2 else \
         (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops_per_step(cfg, tokens, TRAIN_SEQ)
-    out = {"model": "gpt2-medium (bench.py: vocab 50304, flash, no remat, fused CE pallas)",
-           "params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+    flops = model_flops_per_step(cfg, tokens, TRAIN_SEQ, pairs)
+    if sparse:
+        model = ("gpt2-medium (bench.py: vocab 50304, no remat, fused CE pallas) with "
+                 "block-sparse attention: fixed, block 128, 4 local, 1 global")
+        formula = "6 N T + 12 L d_head h (the layout's kept pairs) (T / seq)"
+    else:
+        model = "gpt2-medium (bench.py: vocab 50304, flash, no remat, fused CE pallas)"
+        formula = "6 N T + 12 L d_head h (causal pairs) (T / seq)"
+    out = {"model": model, "params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "config": TRAIN_CONFIG, "losses": losses, "step_ms": step_ms,
            "warmup_steps": TRAIN_WARMUP, "step_ms_median": median_ms,
            "tokens_per_s": tokens / median_ms * 1e3, "peak_gib": peak,
            "launches": launches, "launches_per_step": expected,
-           "model_flops_per_step": flops,
-           "model_flops_formula": "6 N T + 12 L d_head h (causal pairs) (T / seq)",
+           "model_flops_per_step": flops, "model_flops_formula": formula,
            "mfu_vs_989_tflops": flops / (median_ms / 1e3) / H100_BF16_FLOPS}
+    if sparse:
+        out.update(eval_loss=eval_loss, attention_pairs_per_head=pairs,
+                   causal_pairs_per_head=TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
     log(f"  step ms median {median_ms:.1f} over {TRAIN_STEPS} steps; tokens/s "
         f"{out['tokens_per_s']:.0f}; model FLOPs/step ({out['model_flops_formula']}) "
         f"{flops / 1e12:.2f} T = {out['mfu_vs_989_tflops']:.3f} of 989 TFLOP/s; peak device "
@@ -1565,9 +1791,11 @@ def main():
     paged_int8_cases = phase_paged_int8_kernels(torch, F)
     torch.cuda.empty_cache()
     train_cases = phase_train_kernels(torch, F)
+    sparse_cases, sparse_checked = phase_sparse_kernels(torch, F)
     checked = {"flash": {(c["b"], c["s_q"], c["h"], c["kv_heads"], c["d"])
                          for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]},
-               "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]}}
+               "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]},
+               "block_sparse": sparse_checked}
 
     log("phase 3: card against the CPU port (Llama-7B width, 2 layers, fp32)")
     parity_err = phase_card_vs_cpu(torch)
@@ -1575,6 +1803,10 @@ def main():
     log("phase 3: training on the card against the CPU port (GPT-2-medium width, 2 layers, "
         "fp32)")
     train_parity = phase_train_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    log("phase 3: block-sparse training on the card against the CPU port (GPT-2-medium width, "
+        "2 layers, fp32, seq 1024)")
+    sparse_parity = phase_train_card_vs_cpu(torch, sparse=True)
     torch.cuda.empty_cache()
     log("phase 3: quantized weights and the int8 pool on the card against the CPU port "
         "(Llama-7B width, 2 layers, fp32)")
@@ -1597,18 +1829,26 @@ def main():
     log("phase 7: quantized serving path (int8 / int4 weights, int8 paged pool, fused decode, "
         "Llama-7B, bf16)")
     quant = phase_quant_path(torch, checked_qmm, serving["pool_bytes"])
+    torch.cuda.empty_cache()
+
+    log("phase 8: block-sparse training path (initialize + train_batch, GPT-2 medium, fixed "
+        "pattern, block 128, b12 x s1024, bf16)")
+    sparse_training = phase_training(torch, checked, sparse=True)
     by_path = {"generate": launches, "serve": serving["launches"],
                "train": training["launches"],
                "quant_generate_int8": quant["int8"]["launches_generate"],
                "quant_serve_int8": quant["int8"]["serving"]["launches"],
-               "quant_generate_int4": quant["int4"]["launches_generate"]}
+               "quant_generate_int4": quant["int4"]["launches_generate"],
+               "train_block_sparse": sparse_training["launches"]}
     path_kernels = {"generate": ("flash_attention_fwd",),
                     "serve": ("flash_attention_fwd", "paged_flash_decode"),
                     "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward"),
                     "quant_generate_int8": ("flash_attention_fwd", "quantized_matmul_int8"),
                     "quant_serve_int8": ("flash_attention_fwd", "paged_flash_decode_int8",
                                          "quantized_matmul_int8"),
-                    "quant_generate_int4": ("flash_attention_fwd", "quantized_matmul_int4")}
+                    "quant_generate_int4": ("flash_attention_fwd", "quantized_matmul_int4"),
+                    "train_block_sparse": ("block_sparse_attention_fwd",
+                                           "block_sparse_attention_bwd", "fused_ce_forward")}
     for path, names in path_kernels.items():
         for name in names:
             if by_path[path][name] == 0:
@@ -1629,6 +1869,8 @@ def main():
                 for bits in (8, 4)}
     paged_int8_main = next(c for c in paged_int8_cases
                            if c["main_path"] and c["dtype"] == "bfloat16")
+    sparse_main = {part: next(c for c in sparse_cases[part] if c["main_path"])
+                   for part in ("fwd", "bwd")}
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1688,7 +1930,7 @@ def main():
         "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/fused_ce_fwd.cu",
         "replaces": "deepspeed_tpu/ops/pallas/cross_entropy.py:108",
-        "launches": training["launches"]["fused_ce_forward"],
+        "launches": sum(c["fused_ce_forward"] for c in by_path.values()),
         "launches_by_path": {p: c["fused_ce_forward"] for p, c in by_path.items()},
         "max_abs_err": ce_main["max_abs_err"],
         "ms": ce_main["ms"],
@@ -1734,16 +1976,40 @@ def main():
                  f"{paged_int8_main['splits']} splits, int8 pool, bf16 (phase 7's decode); "
                  f"library: gather + masked SDPA on the pool dequantized beforehand",
         "cases": paged_int8_cases,
-    }]
+    }] + [{
+        "name": f"block_sparse_attention_{part}",
+        "route": "cuda",
+        "source": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:"
+                    + ("335" if part == "fwd" else "363"),
+        **({} if part == "fwd" else
+           {"also_replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:403"}),
+        "launches": sum(c[f"block_sparse_attention_{part}"] for c in by_path.values()),
+        "launches_by_path": {p: c[f"block_sparse_attention_{part}"] for p, c in by_path.items()},
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": f"b={TRAIN_BATCH} s={TRAIN_SEQ} h=16 d=64 causal bf16, fixed pattern of "
+                 f"128-token blocks (4 local, 1 global: {head['kept_blocks']} of 36 causal "
+                 f"blocks) (phase 8's layers); library: SDPA with the layout's token mask",
+        "cases": sparse_cases[part],
+    } for part, head in sparse_main.items()]
     log(f"summary: card {card_line}; build {build_s:.1f} s; card-vs-CPU logits err "
         f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
-        f"(serve), {training['peak_gib']:.2f} GiB (train); train step "
-        f"{training['step_ms_median']:.1f} ms; total {time.perf_counter() - t_all:.1f} s")
+        f"(serve), {training['peak_gib']:.2f} GiB (train), {sparse_training['peak_gib']:.2f} "
+        f"GiB (block-sparse train); train step {training['step_ms_median']:.1f} ms, "
+        f"block-sparse {sparse_training['step_ms_median']:.1f} ms; total "
+        f"{time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"training": training, "train_card_vs_cpu": train_parity}))
     log(json.dumps({"quantized": quant, "quant_card_vs_cpu": quant_parity}))
+    log(json.dumps({"training_block_sparse": sparse_training,
+                    "train_block_sparse_card_vs_cpu": sparse_parity}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

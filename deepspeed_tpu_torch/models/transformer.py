@@ -6,6 +6,10 @@ MLP or SwiGLU, parallel attention + MLP (GPT-J, GPT-NeoX). Block params are
 stacked along a leading layer axis, as the JAX package stacks them for its
 layer scan; the port runs the layers in a Python loop over one unbind of
 each stacked leaf, so a backward stacks each leaf's per-layer grads once.
+Attention is dense (``attention_impl="xla"``), flash or block-sparse (a
+``sparse_pattern`` layout of ``sparse_block``-token blocks); the last two
+run the CUDA kernels forward and backward, and fall to the dense path under
+a padding mask or ALiBi, as in the JAX package.
 
 Training: ``CausalLM.loss`` (shifted next-token labels, the fused
 vocab-chunked cross-entropy or the materialized-logits one) and per-block
@@ -68,8 +72,11 @@ class TransformerConfig:
     remat: bool = False
     remat_policy: str = "nothing_saveable"
     compute_dtype: typing.Any = torch.bfloat16
-    attention_impl: str = "xla"  # xla | flash (the CUDA kernels, forward and backward)
+    # xla | flash | block_sparse (the CUDA kernels, forward and backward)
+    attention_impl: str = "xla"
     attention_logits_dtype: str = "fp32"
+    # block_sparse: pattern name (dense|fixed|bigbird|bslongformer|variable),
+    # block size in tokens and the pattern's kwargs
     sparse_pattern: str = "fixed"
     sparse_block: int = 128
     sparse_pattern_config: typing.Any = None
@@ -126,8 +133,6 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_impl must be one of xla|flash|jax_flash|"
                 f"block_sparse, got {self.attention_impl!r}")
-        if self.attention_impl == "block_sparse":
-            raise not_ported("attention_impl='block_sparse'", "A.10")
         if self.attention_impl == "jax_flash":
             raise not_ported("attention_impl='jax_flash'", "A.9")
         if self.n_experts > 0:
@@ -267,7 +272,12 @@ def block_apply(cfg, p, x, mask=None, rope=None, alibi=None):
             cos, sin = rope
             q = L.apply_rotary(q, cos, sin, cfg.rotary_dim, cfg.rotary_interleaved)
             k = L.apply_rotary(k, cos, sin, cfg.rotary_dim, cfg.rotary_interleaved)
-        if cfg.attention_impl == "flash" and alibi is None and mask is None:
+        if cfg.attention_impl == "block_sparse" and alibi is None and mask is None:
+            # the block-sparse kernels take one head count, as in JAX
+            n_rep = cfg.n_heads // cfg.kv_heads
+            out = _block_sparse_attn(cfg, s, q.device)(q, L._repeat_kv(k, n_rep),
+                                                       L._repeat_kv(v, n_rep))
+        elif cfg.attention_impl == "flash" and alibi is None and mask is None:
             from ..ops.flash_attention import flash_attention
 
             # the kernel reads the unrepeated GQA kv heads itself
@@ -294,6 +304,25 @@ def block_apply(cfg, p, x, mask=None, rope=None, alibi=None):
         return x + mlp(_norm_apply(cfg, p["ln_2"], x))
     x = _norm_apply(cfg, p["ln_1"], x + attn(x))
     return _norm_apply(cfg, p["ln_2"], x + mlp(x))
+
+
+_SPARSE_ATTN_CACHE = {}
+
+
+def _block_sparse_attn(cfg, seq, device):
+    """The config's ``BlockSparseAttention``, cached per pattern, shape and
+    device (its layout and active lists are built once and live on the
+    device), as the JAX package's ``_block_sparse_attn`` caches per shape."""
+    from ..ops import sparse_attention as SA
+
+    key = (cfg.sparse_pattern, cfg.sparse_block, repr(cfg.sparse_pattern_config), seq,
+           cfg.causal, cfg.attn_scale, str(device))
+    if key not in _SPARSE_ATTN_CACHE:
+        sp = SA.PATTERNS[cfg.sparse_pattern](block=cfg.sparse_block,
+                                             **dict(cfg.sparse_pattern_config or {}))
+        _SPARSE_ATTN_CACHE[key] = SA.BlockSparseAttention(
+            sp, seq, causal=cfg.causal, scale=cfg.attn_scale, device=device)
+    return _SPARSE_ATTN_CACHE[key]
 
 
 def unstack_layers(cfg, stacked_params):

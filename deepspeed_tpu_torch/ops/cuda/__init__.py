@@ -7,7 +7,8 @@ kernels its main path went through.
 
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "fused_ce_forward": 0,
                  "paged_flash_decode": 0, "paged_flash_decode_int8": 0,
-                 "quantized_matmul_int8": 0, "quantized_matmul_int4": 0}
+                 "quantized_matmul_int8": 0, "quantized_matmul_int4": 0,
+                 "block_sparse_attention_fwd": 0, "block_sparse_attention_bwd": 0}
 
 
 def reset_launch_counts():

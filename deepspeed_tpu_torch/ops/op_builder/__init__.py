@@ -2,12 +2,13 @@
 
 import threading
 
-from .builder import (CUDAOpBuilder, FlashAttentionBuilder, FlashAttentionBwdBuilder,  # noqa: F401
-                      FusedCEForwardBuilder, PagedFlashDecodeBuilder, QuantizedMatmulBuilder)
+from .builder import (BlockSparseAttentionBuilder, CUDAOpBuilder,  # noqa: F401
+                      FlashAttentionBuilder, FlashAttentionBwdBuilder, FusedCEForwardBuilder,
+                      PagedFlashDecodeBuilder, QuantizedMatmulBuilder)
 
 ALL_OPS = {b.NAME: b for b in (FlashAttentionBuilder, FlashAttentionBwdBuilder,
                                FusedCEForwardBuilder, PagedFlashDecodeBuilder,
-                               QuantizedMatmulBuilder)}
+                               QuantizedMatmulBuilder, BlockSparseAttentionBuilder)}
 
 _LOADED = {}
 _LOCK = threading.Lock()

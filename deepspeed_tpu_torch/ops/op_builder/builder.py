@@ -177,3 +177,21 @@ class QuantizedMatmulBuilder(CUDAOpBuilder):
         fn = lib.ds_quantized_matmul
         fn.argtypes = [p] * 5 + [i] * 7 + [p]
         fn.restype = ctypes.c_int
+
+
+class BlockSparseAttentionBuilder(CUDAOpBuilder):
+    """``csrc/block_sparse_attention.cu``: the block-sparse forward, and the
+    backward (dQ and dK/dV kernels, one call)."""
+
+    NAME = "block_sparse_attention"
+    SOURCES = ("block_sparse_attention.cu",)
+
+    def bind(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        fwd = lib.ds_block_sparse_attention_fwd
+        fwd.argtypes = [p] * 7 + [i] * 8 + [strides, f, i, p]
+        fwd.restype = ctypes.c_int
+        bwd = lib.ds_block_sparse_attention_bwd
+        bwd.argtypes = [p] * 14 + [i] * 9 + [strides, f, i, p]
+        bwd.restype = ctypes.c_int

@@ -11,7 +11,7 @@ ROADMAP_ITEMS = {
     "A.7": "distribution: tensor/expert/pipeline/sequence parallelism, ZeRO, MoE",
     "A.8": "offload: ZeRO-Offload and ZeRO-Infinity to host memory and NVMe",
     "A.9": "the rest: encoders, banded local attention, audits",
-    "A.10": "block-sparse attention and its kernels",
+    "A.10": "block-sparse attention and its kernels (ported; nothing raises this item)",
 }
 
 

@@ -541,3 +541,184 @@ def test_paged_int8_kernel_refuses_bad_scales(cuda):
         paged_flash_decode(*args, k_scale=strided(ks), v_scale=strided(vs))
     with pytest.raises(ValueError, match="k_scale and v_scale"):
         paged_flash_decode(*args)
+
+
+# -- block-sparse attention: forward, dQ and dK/dV ---------------------------------
+
+def _sparse_case(pattern, block, causal, s_q, s_kv, b, h, d, dtype, device, seed=0):
+    """The active lists of ``pattern`` (a sparse_pattern name, default kwargs)
+    on ``device`` and q, k, v, dO [b, s, h, d]."""
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+
+    lists = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block), s_q, s_kv, causal=causal,
+                                    device=device).lists
+    q, k, v = _qkv(b, s_q, s_kv, h, h, d, dtype, device, seed=seed)
+    do = torch.tensor(np.random.RandomState(seed + 1).randn(b, s_q, h, d),
+                      dtype=torch.float32).to(device, dtype)
+    return lists, q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("case", [
+    ("fixed", 128, True, 1024, 1024, 2, 4, 64),      # the training layout, tiles of 64
+    ("bigbird", 64, False, 512, 512, 1, 2, 128),     # random blocks, non-causal
+    ("bslongformer", 32, True, 256, 256, 2, 2, 64),  # 32-row tiles
+    ("variable", 16, False, 128, 128, 1, 2, 128),    # 16-row tiles
+    ("fixed", 48, True, 192, 384, 1, 2, 64),         # s_q < s_kv, a block of 48
+], ids=["fixed128", "bigbird64-noncausal", "longformer32", "variable16-noncausal",
+        "sq<skv-block48"])
+def test_block_sparse_kernels_match_plain(cuda, dtype, case):
+    """Forward (o and lse) and backward against the plain versions: 16-bit
+    within 1e-5 + ``rounding_bound`` / ``bwd_rounding_bound`` (the kernels
+    round P and dS to the input type; both sides round the outputs); fp32
+    within 2e-5 + 2e-5 |plain| (summation order only); lse within 1e-5 +
+    1e-5 |lse|. One launch of each wrapper."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd, block_sparse_attention_fwd_reference,
+        bwd_rounding_bound, rounding_bound)
+
+    pattern, block, causal, s_q, s_kv, b, h, d = case
+    lists, q, k, v, do = _sparse_case(pattern, block, causal, s_q, s_kv, b, h, d, dtype, cuda)
+    before = dict(LAUNCH_COUNTS)
+    out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["block_sparse_attention_fwd"] == before["block_sparse_attention_fwd"] + 1
+    ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal,
+                                                        return_lse=True)
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (b, h, s_q)
+    assert ((lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
+    diff = (out.float() - ref.float()).abs()
+    bound = rounding_bound(q, k, v, ref, lists, causal=causal)
+    limit = 2e-5 + 2e-5 * ref.float().abs() if bound is None else 1e-5 + bound
+    worst = (diff / limit).max().item()
+    assert worst <= 1.0, f"forward: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+    grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["block_sparse_attention_bwd"] == before["block_sparse_attention_bwd"] + 1
+    refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists, causal=causal)
+    bounds = bwd_rounding_bound(q, k, v, ref, ref_lse, do, refs, lists, causal=causal)
+    for i, (name, g, r) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        diff = (g.float() - r.float()).abs()
+        limit = (2e-5 + 2e-5 * r.float().abs()) if bounds is None else 1e-5 + bounds[i]
+        worst = (diff / limit).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+def test_block_sparse_kernel_zeroes_unattended_kv_blocks(cuda):
+    """A non-causal layout in which some kv block no query attends: its dK
+    and dV come back zero (the TPU kernel's ``_untouched`` step)."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_fwd)
+
+    layout = np.zeros((4, 4), bool)
+    layout[:, 0] = True
+    layout[3, 3] = True  # kv blocks 1 and 2 are attended by nobody
+    lists = SparseLayout(layout, 64, cuda)
+    q, k, v = _qkv(1, 256, 256, 2, 2, 64, torch.bfloat16, cuda)
+    o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=False, return_lse=True)
+    dq, dk, dv = block_sparse_attention_bwd(q, k, v, o, lse, torch.ones_like(q), lists,
+                                            causal=False)
+    assert (dk[:, 64:192] == 0).all() and (dv[:, 64:192] == 0).all()
+    assert dv[:, :64].abs().sum() > 0 and dv[:, 192:].abs().sum() > 0
+
+
+def test_block_sparse_kernel_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_fwd)
+
+    lists, q, k, v, do = _sparse_case("fixed", 64, True, 256, 256, 1, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="lse"):
+        block_sparse_attention_bwd(q, k, v, q, None, do, lists)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        block_sparse_attention_fwd(q, k, v, SparseLayout(np.tril(np.ones((32, 32), bool)), 8,
+                                                         cuda))
+    with pytest.raises(ValueError, match="lists are on"):
+        block_sparse_attention_fwd(q, k, v, SparseLayout(lists.layout, 64, "cpu"))
+    with pytest.raises(ValueError, match="head_dim"):
+        block_sparse_attention_fwd(q[..., :32], k[..., :32], v[..., :32], lists)
+    with pytest.raises(ValueError, match="one head count"):
+        block_sparse_attention_fwd(q, k[:, :, :1], v[:, :, :1], lists)
+
+
+def test_block_sparse_wrapper_raises_when_the_library_cannot_load(cuda, monkeypatch):
+    """A build that fails raises from the wrapper: no quiet switch to the
+    plain version or to dense attention."""
+    import deepspeed_tpu_torch.ops.cuda.block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import op_builder
+
+    def broken(self):
+        raise RuntimeError("nvcc failed building block_sparse_attention (test)")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.delitem(op_builder._LOADED, "block_sparse_attention", raising=False)
+    monkeypatch.setattr(op_builder.BlockSparseAttentionBuilder, "build", broken)
+    monkeypatch.setattr(bsa, "block_sparse_attention_fwd_reference", plain)
+    lists, q, k, v, do = _sparse_case("fixed", 64, True, 256, 256, 1, 2, 64, torch.bfloat16, cuda)
+    before = dict(LAUNCH_COUNTS)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bsa.block_sparse_attention_fwd(q, k, v, lists)
+    assert LAUNCH_COUNTS == before
+
+
+def test_block_sparse_autograd_never_reaches_the_plain_version(cuda, monkeypatch):
+    """``BlockSparseAttention`` under autograd on CUDA tensors: one forward
+    and one backward launch, the plain versions never called, and the
+    gradients those of the wrappers called directly (bitwise)."""
+    import deepspeed_tpu_torch.ops.cuda.block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import (BlockSparseAttention,
+                                                          FixedSparsityConfig)
+
+    attn = BlockSparseAttention(FixedSparsityConfig(block=64), 512, device=cuda)
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 512, 512, 4, 4, 64, torch.bfloat16, cuda))
+    do = torch.randn(2, 512, 4, 64, device=cuda).to(torch.bfloat16)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(bsa, "block_sparse_attention_fwd_reference", plain)
+    monkeypatch.setattr(bsa, "block_sparse_attention_bwd_reference", plain)
+    before = dict(LAUNCH_COUNTS)
+    attn(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    delta = {n: LAUNCH_COUNTS[n] - before[n] for n in LAUNCH_COUNTS}
+    assert delta["block_sparse_attention_fwd"] == 1 and delta["block_sparse_attention_bwd"] == 1
+    assert delta["flash_attention_fwd"] == delta["flash_attention_bwd"] == 0
+    o, lse = bsa.block_sparse_attention_fwd(q.detach(), k.detach(), v.detach(), attn.lists,
+                                            return_lse=True)
+    for g, w in zip((q.grad, k.grad, v.grad),
+                    bsa.block_sparse_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                                                   do, attn.lists)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_block_sparse_training_engine_on_the_card(cuda):
+    """``initialize`` on the card trains a small GPT-2 with
+    ``attention_impl="block_sparse"`` (fixed pattern, block 32) in bf16:
+    exactly n_layers forward and n_layers backward block-sparse launches
+    and one CE launch per step, no flash launch, finite falling losses."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_config
+
+    cfg = gpt2_config("tiny", vocab_size=1000, attention_impl="block_sparse", sparse_block=32,
+                      sparse_pattern_config={"num_local_blocks": 2, "num_global_blocks": 1},
+                      fused_ce_impl="pallas")
+    engine, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config={
+        "train_batch_size": 4, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.01}}})
+    batch = {"input_ids": np.random.RandomState(0).randint(0, 1000, (4, 128))}
+    names = ("block_sparse_attention_fwd", "block_sparse_attention_bwd", "fused_ce_forward",
+             "flash_attention_fwd", "flash_attention_bwd")
+    losses = []
+    for _ in range(4):
+        before = dict(LAUNCH_COUNTS)
+        losses.append(engine.train_batch(batch=batch).item())
+        assert {n: LAUNCH_COUNTS[n] - before[n] for n in names} == {
+            "block_sparse_attention_fwd": cfg.n_layers, "block_sparse_attention_bwd": cfg.n_layers,
+            "fused_ce_forward": 1, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
