@@ -12,7 +12,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the least time the card could take (the bound) and one PyTorch library
      call computing the same function as a yardstick (never used by the port);
      the quantized matmul (int8, int4) at Llama-7B's linears for every token
-     count phase 7 runs, and the paged decode on an int8 pool;
+     count phase 7 runs (a TMA + wgmma route case also through the old wmma
+     route, in turns), and the paged decode on an int8 pool; the attention
+     kernels (flash forward with lse, flash backward, block-sparse forward
+     and backward) at head_dim 32, 80, 96 and 256;
   3. the card against the CPU port: Llama-7B width with 2 layers in fp32, the
      same seeded weights on both; prefill logits and 8 greedy tokens, then
      ``serve()`` of a few staggered requests: the card's ``fused`` streams
@@ -40,9 +43,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      backend, ``generate()`` over a subset of phase 4's requests and
      ``serve()`` of phase 5's traffic as phase 5 runs it; then ``quant`` int4
      with ``generate()`` over the same requests. Each forward launches 7
-     quantized matmuls per layer, each decode step one int8 paged decode per
-     layer and none of the 16-bit pool's; a quantized matmul shape that
-     phase 2 did not check fails the run;
+     quantized matmuls per layer (a prefill's through the TMA + wgmma route,
+     counted by route), each decode step one int8 paged decode per layer and
+     none of the 16-bit pool's; a quantized matmul shape that phase 2 did not
+     check fails the run;
   8. the block-sparse training path: phase 6's model and config with
      ``attention_impl="block_sparse"`` (the fixed pattern of 128-token blocks,
      4 local and 1 global), 2 warm-up and 8 timed ``train_batch`` steps and
@@ -52,7 +56,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      forward and backward against their plain versions at its layers, at
      the same tokens as b 3 x s 4096 (beside the dense flash kernels) and at
      every pattern, block 16-128 and dtype at small sizes; phase 3 trains 2
-     layers of it at GPT-2-medium width on the card against the CPU port.
+     layers of it at GPT-2-medium width on the card against the CPU port;
+  9. the head dims beside 64 and 128: OPT-2.7B (80), GPT-NeoX-20B (96) and
+     GPT-J-6B (256) at full width with 2 layers, fp32, the same seeded
+     weights on the card and on the CPU port: ``generate()`` on a 128-token
+     prompt (prefill logits, 8 greedy tokens), and one ``train_batch`` step
+     at b 1 x s 128 (its loss and every grad) with flash attention, and at
+     GPT-J's 256 with block-sparse attention too.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -621,6 +631,10 @@ def phase_serving(torch, eng, checked_shapes, paged_kernel="paged_flash_decode",
     if qmm_kernel is not None and launches[qmm_kernel] != 7 * n_layers * (dispatches + SERVE_N):
         raise AssertionError(f"{qmm_kernel} launches {launches[qmm_kernel]} != 7 x {n_layers} x "
                              f"({dispatches} decode steps + {SERVE_N} prefills)")
+    # every prefill linear (m > 16) takes the TMA + wgmma route, no decode step's
+    if qmm_kernel is not None and launches[f"{qmm_kernel}_wgmma"] != 7 * n_layers * SERVE_N:
+        raise AssertionError(f"{qmm_kernel}_wgmma launches {launches[f'{qmm_kernel}_wgmma']} "
+                             f"!= 7 x {n_layers} x {SERVE_N} prefills")
     if launches["flash_attention_fwd"] != n_layers * (SERVE_N - hits):
         raise AssertionError(f"flash launches {launches['flash_attention_fwd']} != {n_layers} x "
                              f"{SERVE_N - hits} full prefills")
@@ -978,6 +992,348 @@ def phase_train_kernels(torch, F):
         out["ce"].append(r)
         del x, emb, labels, safe, bvec, lse, lab, ref_lse, ref_lab, limit
     torch.cuda.empty_cache()
+    return out
+
+
+# the registry's head dims beside Llama-7B's 128 and GPT-2's 64, with the
+# head counts of a preset at each: (head_dim, heads, preset)
+WIDTHS = ((32, 4, "llama tiny"), (80, 32, "opt 2.7b"), (96, 64, "gpt-neox 20b"),
+          (256, 16, "gpt-j 6b"))
+# phase 9: full-width presets at those head dims, cut to WIDTH_LAYERS layers
+WIDTH_MODELS = (("opt", "2.7b"), ("gpt_neox", "20b"), ("gptj", "6b"))
+WIDTH_LAYERS = 2
+WIDTH_SPARSE = {"attention_impl": "block_sparse", "sparse_pattern": "fixed", "sparse_block": 32,
+                "sparse_pattern_config": {"num_local_blocks": 2, "num_global_blocks": 1}}
+
+
+def phase_width_kernels(torch, F):
+    """The flash forward (with lse), the flash backward and the block-sparse
+    forward and backward against their plain versions at head_dim 32, 80, 96
+    and 256 (``WIDTHS``, each at a preset's head count): bf16 and fp32,
+    fp16 at one shape; the flash forward causal at s 2048, with GQA and with
+    s_q < s_kv; the backward causal at s 1024 and with GQA and s_q < s_kv;
+    the block-sparse kernels at s 1024 with the fixed pattern of 64-token
+    blocks (and, at head_dim 256, phase 9's 32-token blocks). Each case is
+    timed beside its plain version, its bound and SDPA (for the block-sparse
+    kernels: with the layout's token mask)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd, block_sparse_attention_fwd_reference)
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        bwd_rounding_bound as bs_bwd_bound)
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import rounding_bound as bs_bound
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (bwd_rounding_bound,
+                                                              flash_attention_bwd,
+                                                              flash_attention_bwd_reference,
+                                                              flash_attention_fwd,
+                                                              flash_attention_reference,
+                                                              rounding_bound)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    out = {"flash_fwd": [], "flash_bwd": [], "block_sparse_fwd": [], "block_sparse_bwd": []}
+
+    def limits(dtype, refs, bounds):
+        if dtype == torch.float32:
+            return (f"{TOL_FP32[0]:g} + {TOL_FP32[1]:g}|plain|",
+                    [TOL_FP32[0] + TOL_FP32[1] * r.float().abs() for r in refs])
+        return f"{ATOL_16:g} + rounding bound", [ATOL_16 + b for b in bounds]
+
+    def record(kind, r, flops, n_bytes, kernel, plain, library, iters=10):
+        peak = H100_FP32_FLOPS if r["dtype"] == "float32" else H100_BF16_FLOPS
+        t_ops, t_bytes = flops / peak, n_bytes / H100_BYTES
+        r.update(ms=time_ms(kernel, iters), plain_ms=time_ms(plain, 2),
+                 library_ms=time_ms(library, iters), bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes", flops=flops,
+                 bytes=n_bytes)
+        r["tflops"] = flops / r["ms"] / 1e9
+        log(f"  {kind} {r['case']:22s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
+            f"({r['limit_use']:.2f} of the limit)  kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
+        out[kind].append(r)
+
+    def sdpa_mask(s_q, s_kv):
+        return (torch.arange(s_kv, device="cuda")[None, :]
+                <= torch.arange(s_q, device="cuda")[:, None] + (s_kv - s_q))
+
+    for d, h, preset in WIDTHS:
+        dtypes = [torch.bfloat16, torch.float32] + ([torch.float16] if d == 80 else [])
+        for dtype in dtypes:
+            tag = lambda name: f"d{d}-{name}"
+            # -- flash forward with lse -------------------------------------------
+            fwd_cases = [("causal-s2048", 1, 2048, 2048, h, h, True)]
+            if dtype != torch.float16:
+                fwd_cases += [("gqa-s1024", 1, 1024, 1024, h, max(1, h // 4), True),
+                              ("sq256<skv1024", 1, 256, 1024, h, h, True)]
+            for name, b, s_q, s_kv, hq, kvh, causal in fwd_cases:
+                q = rnd(b, s_q, hq, d).to(dtype)
+                k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
+                o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+                ref, ref_lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+                torch.cuda.synchronize()
+                bound = None if dtype == torch.float32 else rounding_bound(q, k, v, ref, causal)
+                tol, (limit,) = limits(dtype, [ref], [bound])
+                diff = (o.float() - ref.float()).abs()
+                label = f"flash fwd {tag(name)} {dtype}"
+                use = check_limit(label, diff, limit, tol)
+                lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
+                                      1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                mask = sdpa_mask(s_q, s_kv) if s_q != s_kv else None
+                r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
+                         s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
+                         max_abs_err=diff.max().item(), limit_use=use,
+                         lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+                         lse_limit_use=lse_use, tolerance=tol)
+                del diff, limit, bound, ref, ref_lse
+                record("flash_fwd", r, attention_flops(b, s_q, s_kv, hq, d, causal),
+                       (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+                       + lse.numel() * 4,
+                       lambda: flash_attention_fwd(q, k, v, causal=causal, return_lse=True),
+                       lambda: flash_attention_reference(q, k, v, causal=causal,
+                                                         return_lse=True),
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                           enable_gqa=kvh != hq))
+                del q, k, v, o, lse, qt, kt, vt
+
+            # -- flash backward ---------------------------------------------------
+            bwd_cases = [("causal-s1024", 1, 1024, 1024, h, h, True)]
+            if dtype != torch.float16:
+                bwd_cases.append(("gqa-sq256<skv512", 1, 256, 512, h, max(1, h // 4), True))
+            for name, b, s_q, s_kv, hq, kvh, causal in bwd_cases:
+                q = rnd(b, s_q, hq, d).to(dtype)
+                k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
+                o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+                do = rnd(b, s_q, hq, d).to(dtype)
+                args = (q, k, v, o, lse, do)
+                grads = flash_attention_bwd(*args, causal=causal)
+                refs = flash_attention_bwd_reference(*args, causal=causal)
+                torch.cuda.synchronize()
+                bounds = bwd_rounding_bound(*args, refs, causal=causal)
+                tol, lims = limits(dtype, refs, bounds or [None] * 3)
+                uses = {g: check_limit(f"flash bwd {tag(name)} {dtype} {g}",
+                                       (grads[i].float() - refs[i].float()).abs(), lims[i], tol)
+                        for i, g in enumerate(("dq", "dk", "dv"))}
+                errs = {g: (grads[i].float() - refs[i].float()).abs().max().item()
+                        for i, g in enumerate(("dq", "dk", "dv"))}
+                del bounds, lims, refs, grads
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                mask = sdpa_mask(s_q, s_kv) if s_q != s_kv else None
+                sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      is_causal=causal and mask is None,
+                                                      enable_gqa=kvh != hq)
+                gt = do.transpose(1, 2)
+                r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
+                         s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
+                         max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                         limit_use=max(uses.values()), limit_use_by_grad=uses, tolerance=tol)
+                record("flash_bwd", r, attention_flops(b, s_q, s_kv, hq, d, causal) // 4 * 10,
+                       (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel())
+                       * q.element_size() + lse.numel() * 4,
+                       lambda: flash_attention_bwd(*args, causal=causal),
+                       lambda: flash_attention_bwd_reference(*args, causal=causal),
+                       lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
+                del q, k, v, o, lse, do, args, qt, kt, vt, sdpa, gt
+
+            # -- block-sparse forward and backward --------------------------------
+            blocks = [64] + ([WIDTH_SPARSE["sparse_block"]] if d == 256 else [])
+            if dtype == torch.float16:
+                blocks = [64]
+            for block in blocks:
+                s, b = 1024, 1
+                kwargs = WIDTH_SPARSE["sparse_pattern_config"]
+                attn = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=block, **kwargs), s,
+                                               causal=True, device="cuda")
+                lists = attn.lists
+                q, k, v, do = (rnd(b, s, h, d).to(dtype) for _ in range(4))
+                o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True,
+                                                    return_lse=True)
+                ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
+                                                                    return_lse=True)
+                grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists,
+                                                   causal=True)
+                refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
+                                                            causal=True)
+                torch.cuda.synchronize()
+                name = f"fixed{block}-s{s}"
+                label = f"block-sparse {tag(name)} {dtype}"
+                f_bound = None if dtype == torch.float32 else bs_bound(q, k, v, ref, lists)
+                g_bounds = (None if dtype == torch.float32 else
+                            bs_bwd_bound(q, k, v, ref, ref_lse, do, refs, lists))
+                tol, (f_lim,) = limits(dtype, [ref], [f_bound])
+                _, g_lims = limits(dtype, refs, g_bounds or [None] * 3)
+                f_diff = (o.float() - ref.float()).abs()
+                f_use = check_limit(f"{label} fwd", f_diff, f_lim, tol)
+                lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
+                                      1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+                uses = {g: check_limit(f"{label} {g}", (grads[i].float() - refs[i].float()).abs(),
+                                       g_lims[i], tol)
+                        for i, g in enumerate(("dq", "dk", "dv"))}
+                errs = {g: (grads[i].float() - refs[i].float()).abs().max().item()
+                        for i, g in enumerate(("dq", "dk", "dv"))}
+                common = dict(preset=preset, dtype=str(dtype).split(".")[1], b=b, s=s, h=h, d=d,
+                              pattern="fixed", block=block, causal=True,
+                              kept_blocks=int(attn.layout.sum()), tolerance=tol)
+                fr = dict(common, case=tag(name), max_abs_err=f_diff.max().item(),
+                          limit_use=f_use, lse_limit_use=lse_use)
+                gr = dict(common, case=tag(name), max_abs_err=max(errs.values()),
+                          max_abs_err_by_grad=errs, limit_use=max(uses.values()),
+                          limit_use_by_grad=uses)
+                del f_diff, f_lim, g_lims, f_bound, g_bounds, grads, refs
+                kept = kept_pairs(attn.layout, block, s, s, True)
+                size = q.numel() * q.element_size()
+                mask = np.kron(attn.layout, np.ones((block, block), bool))
+                mask = torch.as_tensor(mask & np.tril(np.ones((s, s), bool)), device="cuda")
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+                record("block_sparse_fwd", fr, 4 * d * kept * b * h, 4 * size + lse.numel() * 4,
+                       lambda: block_sparse_attention_fwd(q, k, v, lists, causal=True,
+                                                          return_lse=True),
+                       lambda: block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
+                                                                    return_lse=True),
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+                sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                gt = do.transpose(1, 2)
+                record("block_sparse_bwd", gr, 10 * d * kept * b * h, 8 * size + lse.numel() * 4,
+                       lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
+                                                          causal=True),
+                       lambda: block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists,
+                                                                    causal=True),
+                       lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
+                del q, k, v, do, o, lse, ref, ref_lse, mask, qt, kt, vt, sdpa, gt
+    worst = max(r["limit_use"] for rs in out.values() for r in rs)
+    log(f"  head dims {[w[0] for w in WIDTHS]}: {sum(len(v) for v in out.values())} cases, "
+        f"each within its limit (worst {worst:.2f} of a limit)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widths(torch):
+    """Phase 9: ``init_inference(...).generate()`` and training at the full
+    width of presets whose head_dim is neither 64 nor 128 (``WIDTH_MODELS``:
+    OPT-2.7B at 80, GPT-NeoX-20B at 96, GPT-J-6B at 256), cut to
+    ``WIDTH_LAYERS`` layers, in fp32 with the same seeded weights on the card
+    and on the CPU port, batch 1: the prefill logits of a 128-token prompt
+    and 8 greedy tokens; one ``train_batch`` step at seq 128 with flash
+    attention, taken apart so that its loss and every grad are held against
+    the CPU port's before the card's optimizer step (the first AdamW update
+    is about lr sign(g), which grad noise flips, so it is not compared); at
+    GPT-J-6B's head_dim 256 the same with block-sparse attention (fixed
+    pattern, 32-token blocks). The card's runs must launch the attention
+    kernels; the CPU port's launch none."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, InferenceEngine
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.decoding import forward_with_cache, init_cache
+    from deepspeed_tpu_torch.models.layers import flatten_tree, tree_map
+    from deepspeed_tpu_torch.models.registry import MODEL_CONFIGS
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+
+    out = {}
+    rng = np.random.RandomState(9)
+    for family, size in WIDTH_MODELS:
+        make = lambda **kw: MODEL_CONFIGS[family](size, n_layers=WIDTH_LAYERS, **kw)
+        cfg = make()
+        label = f"{family} {size} (d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim})"
+        res = {"head_dim": cfg.head_dim, "d_model": cfg.d_model, "n_layers": WIDTH_LAYERS}
+        t0 = time.perf_counter()
+        # -- generate --------------------------------------------------------------
+        config = {"dtype": "float32", "max_tokens": 256, "seed": 3}
+        card = deepspeed_tpu_torch.init_inference(CausalLM(make()), config)
+        cpu = InferenceEngine(CausalLM(make()), DeepSpeedInferenceConfig.from_dict(config),
+                              device="cpu",
+                              model_parameters=tree_map(lambda t: t.detach().cpu(), card.params))
+        ids = torch.tensor(rng.randint(0, cfg.vocab_size, (1, 128)))
+        logits = {}
+        before = LAUNCH_COUNTS["flash_attention_fwd"]
+        for name, eng in (("card", card), ("cpu", cpu)):
+            with torch.inference_mode():
+                cache = init_cache(eng.module.config, 1, 136, torch.float32, device=eng.device)
+                logits[name] = forward_with_cache(eng.module, eng.params, ids.to(eng.device),
+                                                  cache, 0, 136, prefill=True).cpu()
+        if LAUNCH_COUNTS["flash_attention_fwd"] - before != WIDTH_LAYERS:
+            raise AssertionError(f"{label}: the card's prefill launched "
+                                 f"{LAUNCH_COUNTS['flash_attention_fwd'] - before} flash "
+                                 f"forwards, expected {WIDTH_LAYERS}")
+        err = (logits["card"] - logits["cpu"]).abs().max().item()
+        scale = logits["cpu"].abs().max().item()
+        # phase 3's tolerance: fp32 on both sides (TF32 off), sums in another order
+        if not err <= 2e-4 * max(1.0, scale):
+            raise AssertionError(f"{label}: card vs CPU prefill logits max abs err {err} "
+                                 f"(|logits| {scale})")
+        toks = {name: eng.generate(ids.numpy(), max_new_tokens=8).cpu()
+                for name, eng in (("card", card), ("cpu", cpu))}
+        if not torch.equal(toks["card"], toks["cpu"]):
+            raise AssertionError(f"{label}: greedy streams differ: card "
+                                 f"{toks['card'][0, 128:].tolist()} cpu "
+                                 f"{toks['cpu'][0, 128:].tolist()}")
+        res["generate"] = {"prefill_logits_max_abs_err": err, "logits_abs_max": scale,
+                           "greedy_tokens": toks["card"][0, 128:].tolist()}
+        log(f"  {label}: prefill logits max abs err {err:.3e} (|logits| max {scale:.2f}); 8 "
+            f"greedy tokens equal: {res['generate']['greedy_tokens']}")
+        card.destroy()
+        cpu.destroy()
+        del card, cpu
+        torch.cuda.empty_cache()
+        # -- training --------------------------------------------------------------
+        impls = [("flash", {"attention_impl": "flash"})]
+        if cfg.head_dim == 256:
+            impls.append(("block_sparse", WIDTH_SPARSE))
+        for impl, attention in impls:
+            kernels = ((f"{impl}_attention_fwd", f"{impl}_attention_bwd") if impl == "flash"
+                       else ("block_sparse_attention_fwd", "block_sparse_attention_bwd"))
+            ds = {"train_batch_size": 1, "seed": 5, "gradient_clipping": 1.0,
+                  "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+            card, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(make(**attention)),
+                                                      config=ds)
+            cpu, *_ = deepspeed_tpu_torch.initialize(
+                model=CausalLM(make(**attention)), config=ds, device="cpu",
+                model_parameters=tree_map(lambda t: t.detach().cpu(), card.params))
+            batch = {"input_ids": rng.randint(0, cfg.vocab_size, (1, 128))}
+            losses = {}
+            for name, eng in (("card", card), ("cpu", cpu)):
+                before = {k: LAUNCH_COUNTS[k] for k in kernels}
+                losses[name] = eng.forward(batch).item()
+                eng.backward()
+                launched = {k: LAUNCH_COUNTS[k] - before[k] for k in kernels}
+                want = WIDTH_LAYERS if name == "card" else 0
+                if launched != {k: want for k in kernels}:
+                    raise AssertionError(f"{label} {impl} {name}: launches {launched}, "
+                                         f"expected {want} of each")
+            grads = {}
+            flat_card, flat_cpu = flatten_tree(card.params), flatten_tree(cpu.params)
+            for key in sorted(flat_cpu):
+                if flat_cpu[key].grad is None:
+                    continue
+                g_card, g_cpu = flat_card[key].grad.cpu(), flat_cpu[key].grad
+                gerr, gscale = (g_card - g_cpu).abs().max().item(), g_cpu.abs().max().item()
+                # phase 3's tolerance: fp32 on both sides, sums in another order
+                if not gerr <= 1e-4 * gscale + 1e-8:
+                    raise AssertionError(f"{label} {impl} grad {key}: card vs CPU max abs err "
+                                         f"{gerr} (|grad| max {gscale})")
+                grads[key] = {"max_abs_err": gerr, "max_abs": gscale}
+            # phase 3's tolerance on the loss
+            if not abs(losses["card"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]):
+                raise AssertionError(f"{label} {impl}: card vs CPU losses {losses}")
+            card.step()  # the rest of the card's train_batch step (the update is not compared)
+            worst = max(grads.values(), key=lambda g: g["max_abs_err"] / max(g["max_abs"], 1e-30))
+            res[f"train_{impl}"] = {"losses": losses, "grads_checked": len(grads),
+                                    "worst_grad": worst}
+            log(f"  {label} {impl} training step: loss card {losses['card']:.6f} cpu "
+                f"{losses['cpu']:.6f}; {len(grads)} grads within 1e-4 relative (worst "
+                f"{worst['max_abs_err']:.2e} at |g| {worst['max_abs']:.2e})")
+            card.destroy()
+            cpu.destroy()
+            del card, cpu
+            torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[f"{family}-{size}"] = res
     return out
 
 
@@ -1360,8 +1716,11 @@ def phase_qmm_kernels(torch, main_ms):
     fp32 at (4096, 11008) m 8; a ragged case (m not a multiple of 16, n not
     of 128, an odd group). Each case has the kernel's time, the plain
     version's, the bound and ``torch.matmul`` on the weight dequantized
-    beforehand (the unquantized model's GEMM) as the yardstick."""
+    beforehand (the unquantized model's GEMM) as the yardstick; a case of
+    the TMA + wgmma route is also timed through the old wmma route, in
+    turns (old, new, new, old), and its time is the mean of its two turns."""
     from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (dequantized_weight,
+                                                               kernel_route,
                                                                quantized_matmul,
                                                                quantized_matmul_reference,
                                                                rounding_bound)
@@ -1398,7 +1757,14 @@ def phase_qmm_kernels(torch, main_ms):
             name = f"qmm int{bits} m{m} k{k} n{n} g{group} {dtype}"
             use = check_limit(name, diff, limit, tol)
             w_deq = dequantized_weight(q, scale, bits).to(dtype)
-            kernel_ms = time_ms(kern, 20)
+            route = kernel_route(m, n, k, group, dtype, bits)
+            old_route_ms = None
+            if route == "wgmma":
+                old = lambda: quantized_matmul(x, q, scale, bits=bits, route="wmma")
+                turns = [time_ms(f, 20) for f in (old, kern, kern, old)]
+                kernel_ms, old_route_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            else:
+                kernel_ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3)
             library_ms = time_ms(lambda: torch.matmul(x, w_deq), 20)
             # the bound: x, q, the scales and y moved once; 2 m n k operations
@@ -1410,14 +1776,17 @@ def phase_qmm_kernels(torch, main_ms):
             r = dict(case=f"m{m}-k{k}-n{n}-g{group}", bits=bits, dtype=str(dtype).split(".")[1],
                      m=m, k=k, n=n, group=group, main_path=(k, n) in LLAMA_LINEARS
                      and dtype == torch.bfloat16 and group == 64,
-                     max_abs_err=diff.max().item(), tolerance=tol, limit_use=use,
-                     ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     route=route, max_abs_err=diff.max().item(), tolerance=tol,
+                     limit_use=use, ms=kernel_ms, old_route_ms=old_route_ms,
+                     plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=max(t_bytes, t_ops) * 1e3,
                      bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=n_bytes,
                      flops=flops, gb_per_s=n_bytes / kernel_ms / 1e6,
                      tflops=flops / kernel_ms / 1e9)
-            log(f"  {name:44s} err {r['max_abs_err']:.2e} ({use:.2f} of the limit)  kernel "
-                f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  matmul {library_ms:.4f} ms  bound "
+            was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
+            log(f"  {name:44s} err {r['max_abs_err']:.2e} ({use:.2f} of the limit)  {route} "
+                f"{kernel_ms:.4f} ms{was}  plain {plain_ms:.4f} ms  matmul {library_ms:.4f} ms  "
+                f"bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['gb_per_s']:.0f} GB/s "
                 f"{r['tflops']:.1f} TFLOP/s")
             results.append(r)
@@ -1628,6 +1997,7 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
 
     import deepspeed_tpu_torch
     import deepspeed_tpu_torch.ops.cuda.quantized_matmul as qmm_mod
+    from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
     from deepspeed_tpu_torch.models import CausalLM, llama_config
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
 
@@ -1637,9 +2007,11 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
     seen = set()
     real = qmm_mod.quantized_matmul
 
+    forced = {"route": None}   # "wmma": the prefill linears through the old route
+
     def recording(x, q, scale, bits):
         seen.add((x.shape[0], x.shape[1], q.shape[1], bits, x.dtype))
-        return real(x, q, scale, bits=bits)
+        return real(x, q, scale, bits=bits, route=forced["route"] if x.shape[0] > 16 else None)
 
     qmm_mod.quantized_matmul = recording
     out = {}
@@ -1666,10 +2038,12 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
             requests = []
             reset_launch_counts()
             n_forwards = 0
+            prompts = {}
             for name, shape in REQUESTS:
                 ids = rng.randint(0, vocab, shape)
                 if name not in QUANT_REQUESTS:
                     continue
+                prompts[name] = ids
                 streams = []
                 for attempt in ("cold", "warm"):
                     before = dict(LAUNCH_COUNTS)
@@ -1700,6 +2074,33 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
             gen_launches = dict(LAUNCH_COUNTS)
             if gen_launches[f"quantized_matmul_{label}"] != per_forward * n_forwards:
                 raise AssertionError(f"{label}: generate launches {gen_launches}")
+            # each generate() runs one prefill forward (m = batch x bucket > 16):
+            # its linears, and only they, take the TMA + wgmma route
+            if gen_launches[f"quantized_matmul_{label}_wgmma"] != per_forward * len(requests):
+                raise AssertionError(f"{label}: {gen_launches[f'quantized_matmul_{label}_wgmma']} "
+                                     f"wgmma-route launches, expected {per_forward} x "
+                                     f"{len(requests)} prefills")
+            # the same prefills with the linears through the old wmma route,
+            # in turns (old, new, new, old; 2 new tokens, prefill ms read)
+            # (2 new tokens where the prompt bucket stays the one MAX_NEW gives,
+            # else MAX_NEW: the bucket caps at max_tokens - new tokens)
+            routes = {}
+            for name, ids in prompts.items():
+                bucket = lambda new: bucket_prompt_len(eng.config, ids.shape[1],
+                                                       eng.config.max_tokens - new)
+                new = 2 if bucket(2) == bucket(MAX_NEW) else MAX_NEW
+                turns = {"wmma": [], "wgmma": []}
+                for route in ("wmma", "wgmma", "wgmma", "wmma"):
+                    forced["route"] = None if route == "wgmma" else route
+                    eng.generate(ids, max_new_tokens=new, greedy=True)
+                    torch.cuda.synchronize()
+                    turns[route].append(eng.last_timing.seconds()["prefill"] * 1e3)
+                forced["route"] = None
+                routes[name] = {"prefill_ms": sum(turns["wgmma"]) / 2,
+                                "prefill_ms_wmma_route": sum(turns["wmma"]) / 2, "turns": turns}
+                log(f"  {label} {name:18s} prefill {routes[name]['prefill_ms']:.2f} ms with the "
+                    f"TMA + wgmma route, {routes[name]['prefill_ms_wmma_route']:.2f} ms with the "
+                    f"old wmma route (turns old, new, new, old)")
             # data-sheet floor of a decode step: every weight read once
             head_bytes = eng.params["lm_head"]["kernel"].numel() * 2 \
                 if "lm_head" in eng.params else 0
@@ -1707,6 +2108,7 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
                           if "kernel_q" in n)
             floor_ms = (block_q + scale_bytes_bf16 + head_bytes) / H100_BYTES * 1e3
             res = {"requests": requests, "launches_generate": gen_launches,
+                   "prefill_by_route": routes,
                    "init_s": init_s, "stored_weight_gb": weight_bytes / 1e9,
                    "decode_weight_bytes": block_q + scale_bytes_bf16 + head_bytes,
                    "decode_floor_ms": floor_ms}
@@ -1792,6 +2194,7 @@ def main():
     torch.cuda.empty_cache()
     train_cases = phase_train_kernels(torch, F)
     sparse_cases, sparse_checked = phase_sparse_kernels(torch, F)
+    width_cases = phase_width_kernels(torch, F)
     checked = {"flash": {(c["b"], c["s_q"], c["h"], c["kv_heads"], c["d"])
                          for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]},
                "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]},
@@ -1834,12 +2237,23 @@ def main():
     log("phase 8: block-sparse training path (initialize + train_batch, GPT-2 medium, fixed "
         "pattern, block 128, b12 x s1024, bf16)")
     sparse_training = phase_training(torch, checked, sparse=True)
+    torch.cuda.empty_cache()
+
+    log(f"phase 9: head dims {sorted({w[0] for w in WIDTHS})} at full width "
+        f"({', '.join(' '.join(m) for m in WIDTH_MODELS)}, {WIDTH_LAYERS} layers, fp32) on the "
+        f"card against the CPU port")
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+
+    reset_launch_counts()
+    widths = phase_widths(torch)
+    widths_launches = dict(LAUNCH_COUNTS)
     by_path = {"generate": launches, "serve": serving["launches"],
                "train": training["launches"],
                "quant_generate_int8": quant["int8"]["launches_generate"],
                "quant_serve_int8": quant["int8"]["serving"]["launches"],
                "quant_generate_int4": quant["int4"]["launches_generate"],
-               "train_block_sparse": sparse_training["launches"]}
+               "train_block_sparse": sparse_training["launches"],
+               "widths": widths_launches}
     path_kernels = {"generate": ("flash_attention_fwd",),
                     "serve": ("flash_attention_fwd", "paged_flash_decode"),
                     "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward"),
@@ -1848,7 +2262,9 @@ def main():
                                          "quantized_matmul_int8"),
                     "quant_generate_int4": ("flash_attention_fwd", "quantized_matmul_int4"),
                     "train_block_sparse": ("block_sparse_attention_fwd",
-                                           "block_sparse_attention_bwd", "fused_ce_forward")}
+                                           "block_sparse_attention_bwd", "fused_ce_forward"),
+                    "widths": ("flash_attention_fwd", "flash_attention_bwd",
+                               "block_sparse_attention_fwd", "block_sparse_attention_bwd")}
     for path, names in path_kernels.items():
         for name in names:
             if by_path[path][name] == 0:
@@ -1867,6 +2283,9 @@ def main():
     qmm_main = {bits: next(c for c in qmm_cases if c["bits"] == bits and c["main_path"]
                            and (c["m"], c["k"], c["n"]) == (8, 4096, 11008))
                 for bits in (8, 4)}
+    qmm_prefill = {bits: next(c for c in qmm_cases if c["bits"] == bits and c["main_path"]
+                              and (c["m"], c["k"], c["n"]) == (2048, 4096, 11008))
+                   for bits in (8, 4)}
     paged_int8_main = next(c for c in paged_int8_cases
                            if c["main_path"] and c["dtype"] == "bfloat16")
     sparse_main = {part: next(c for c in sparse_cases[part] if c["main_path"])
@@ -1888,6 +2307,7 @@ def main():
         "shape": f"b={b_main} s={s_main} h=32 d=128 causal bf16 (the longest prefill of "
                  f"the main paths)",
         "cases": cases,
+        "width_cases": width_cases["flash_fwd"],
     }, {
         "name": "paged_flash_decode",
         "route": "cuda",
@@ -1925,6 +2345,7 @@ def main():
         "shape": f"b={TRAIN_BATCH} s={TRAIN_SEQ} h=16 d=64 causal bf16 (phase 6's layers)",
         "cases": train_cases["flash_bwd"],
         "forward_lse_cases": train_cases["flash_fwd_lse"],
+        "width_cases": width_cases["flash_bwd"],
     }, {
         "name": "fused_ce_forward",
         "route": "cuda",
@@ -1948,6 +2369,11 @@ def main():
                     + ("161" if bits == 8 else "176"),
         "launches": sum(c[f"quantized_matmul_int{bits}"] for c in by_path.values()),
         "launches_by_path": {p: c[f"quantized_matmul_int{bits}"] for p, c in by_path.items()},
+        "launches_by_route": {
+            "wgmma": sum(c[f"quantized_matmul_int{bits}_wgmma"] for c in by_path.values()),
+            "gemv_and_wmma": sum(c[f"quantized_matmul_int{bits}"]
+                                 - c[f"quantized_matmul_int{bits}_wgmma"]
+                                 for c in by_path.values())},
         "max_abs_err": qmm_main[bits]["max_abs_err"],
         "ms": qmm_main[bits]["ms"],
         "plain_ms": qmm_main[bits]["plain_ms"],
@@ -1956,6 +2382,13 @@ def main():
         "library_ms": qmm_main[bits]["library_ms"],
         "shape": "m=8 k=4096 n=11008 group 64 bf16 (the serving decode's gate/up "
                  "projection); library: torch.matmul on the weight dequantized to bf16",
+        "prefill_shape": "m=2048 k=4096 n=11008 group 64 bf16 (the 2048-token prefill's "
+                         "gate/up projection), TMA + wgmma route; old route: the wmma kernel",
+        "prefill_ms": qmm_prefill[bits]["ms"],
+        "prefill_library_ms": qmm_prefill[bits]["library_ms"],
+        "prefill_bound_ms": qmm_prefill[bits]["bound_ms"],
+        "prefill_old_route_ms": qmm_prefill[bits]["old_route_ms"],
+        "prefill_max_abs_err": qmm_prefill[bits]["max_abs_err"],
         "cases": [c for c in qmm_cases if c["bits"] == bits],
     } for bits in (8, 4)] + [{
         "name": "paged_flash_decode_int8",
@@ -1996,12 +2429,14 @@ def main():
                  f"128-token blocks (4 local, 1 global: {head['kept_blocks']} of 36 causal "
                  f"blocks) (phase 8's layers); library: SDPA with the layout's token mask",
         "cases": sparse_cases[part],
+        "width_cases": width_cases[f"block_sparse_{part}"],
     } for part, head in sparse_main.items()]
     log(f"summary: card {card_line}; build {build_s:.1f} s; card-vs-CPU logits err "
         f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
         f"(serve), {training['peak_gib']:.2f} GiB (train), {sparse_training['peak_gib']:.2f} "
         f"GiB (block-sparse train); train step {training['step_ms_median']:.1f} ms, "
-        f"block-sparse {sparse_training['step_ms_median']:.1f} ms; total "
+        f"block-sparse {sparse_training['step_ms_median']:.1f} ms; phase 9 "
+        f"{sum(r['seconds'] for r in widths.values()):.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))
@@ -2010,6 +2445,7 @@ def main():
     log(json.dumps({"quantized": quant, "quant_card_vs_cpu": quant_parity}))
     log(json.dumps({"training_block_sparse": sparse_training,
                     "train_block_sparse_card_vs_cpu": sparse_parity}))
+    log(json.dumps({"widths": widths, "widths_launches": widths_launches}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

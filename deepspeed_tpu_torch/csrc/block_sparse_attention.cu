@@ -17,7 +17,9 @@
 // attends, ascending; the transposed lists (of layout^T) are the q blocks that
 // attend kv block j. The kernels' tiles are TILE rows, the largest of 64, 32,
 // 16 that divides the block (min(64, block) for the patterns' power-of-two
-// blocks), so a layout block may split into several tiles. With causal
+// blocks; at most 32 at head_dim 256, for shared memory), so a layout block
+// may split into several tiles. head_dim is 32, 64, 80, 96, 128 or 256 (every
+// width of the model registry's presets). With causal
 // masking (aligned to the bottom right: key c is seen by query r when
 // c <= r + s_kv - s_q, the TPU kernel's q_offset) the per-element mask
 // applies on tiles that cross the diagonal only, and a tile wholly above the
@@ -54,7 +56,8 @@
 // rows of the block's tile end to end. Tiles are staged in shared memory with
 // 16-byte loads; S = Q K^T and the other products are warp-level tensor-core
 // MMA (nvcuda::wmma 16x16x16, fp32 accumulate) for bf16/fp16 and fp32 FMAs
-// for fp32 (full fp32, no TF32); S, P, dS and the fp32 accumulators live in
+// for fp32 (full fp32, no TF32; the last column group masked where head_dim
+// is not a multiple of 32); S, P, dS and the fp32 accumulators live in
 // shared memory. fp32 dK/dV blocks step over q in 32-row tiles so that their
 // shared memory fits the 227 KB a block can have. The C entry points launch
 // on the caller's stream, do not synchronise and return a cudaError_t.
@@ -208,27 +211,39 @@ __device__ __forceinline__ void mm_ab_acc(const T* A, const T* B, float* C, int 
       wmma::store_matrix_sync(C + n, acc, LDC, wmma::mem_row_major);
     }
   } else {
-    constexpr int CPL = D / 32;
-    float acc[ROWS][CPL];
+    // lane owns columns lane + 32 c, the last group masked when D is not a
+    // multiple of 32 (80, 96), at most 4 groups per pass
+    constexpr int C_ALL = (D + 31) / 32;
+    constexpr int CPL = C_ALL < 4 ? C_ALL : 4;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int c0 = 0; c0 < C_ALL; c0 += CPL) {
+      float acc[ROWS][CPL];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] = 0.0f;
-    for (int kk = 0; kk < N; ++kk) {
-      float bv[CPL];
+      for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) bv[c] = to_float(B[kk * LDB + lane + 32 * c]);
+        for (int c = 0; c < CPL; ++c) acc[i][c] = 0.0f;
+      for (int kk = 0; kk < N; ++kk) {
+        float bv[CPL];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float a = to_float(A[i * LDA + kk]);
+        for (int c = 0; c < CPL; ++c) {
+          const int col = lane + 32 * (c0 + c);
+          bv[c] = col < D ? to_float(B[kk * LDB + col]) : 0.0f;
+        }
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
+        for (int i = 0; i < ROWS; ++i) {
+          const float a = to_float(A[i * LDA + kk]);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int col = lane + 32 * (c0 + c);
+          if (col < D) C[i * LDC + col] += acc[i][c];
+        }
     }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) C[i * LDC + lane + 32 * c] += acc[i][c];
   }
 }
 
@@ -663,25 +678,38 @@ cudaError_t launch_bwd(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // The tile: the largest of 64, 32, 16 rows that divides the block (min(64,
-// block) for the power-of-two blocks the patterns use).
-__host__ __device__ constexpr int tile_for(int block) {
-  return block % 64 == 0 ? 64 : (block % 32 == 0 ? 32 : 16);
+// block) for the power-of-two blocks the patterns use), at most 32 at head_dim
+// 256, where a 64-row tile's shared memory passes the 227 KB a block can have.
+__host__ __device__ constexpr int tile_for(int block, int head_dim) {
+  return block % 64 == 0 && head_dim <= 128 ? 64 : (block % 32 == 0 ? 32 : 16);
 }
 
 template <typename T, int D>
 cudaError_t dispatch_tile(const Params& p, int batch, bool bwd, cudaStream_t stream) {
-  switch (tile_for(p.block)) {
-    case 64: return bwd ? launch_bwd<T, D, 64>(p, batch, stream) : launch_fwd<T, D, 64>(p, batch, stream);
-    case 32: return bwd ? launch_bwd<T, D, 32>(p, batch, stream) : launch_fwd<T, D, 32>(p, batch, stream);
-    default: return bwd ? launch_bwd<T, D, 16>(p, batch, stream) : launch_fwd<T, D, 16>(p, batch, stream);
+  switch (tile_for(p.block, D)) {
+    case 64:
+      if constexpr (D <= 128)
+        return bwd ? launch_bwd<T, D, 64>(p, batch, stream)
+                   : launch_fwd<T, D, 64>(p, batch, stream);
+      return cudaErrorInvalidValue;
+    case 32:
+      return bwd ? launch_bwd<T, D, 32>(p, batch, stream) : launch_fwd<T, D, 32>(p, batch, stream);
+    default:
+      return bwd ? launch_bwd<T, D, 16>(p, batch, stream) : launch_fwd<T, D, 16>(p, batch, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch(const Params& p, int batch, int head_dim, bool bwd, cudaStream_t stream) {
-  if (head_dim == 64) return dispatch_tile<T, 64>(p, batch, bwd, stream);
-  if (head_dim == 128) return dispatch_tile<T, 128>(p, batch, bwd, stream);
-  return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 32: return dispatch_tile<T, 32>(p, batch, bwd, stream);
+    case 64: return dispatch_tile<T, 64>(p, batch, bwd, stream);
+    case 80: return dispatch_tile<T, 80>(p, batch, bwd, stream);
+    case 96: return dispatch_tile<T, 96>(p, batch, bwd, stream);
+    case 128: return dispatch_tile<T, 128>(p, batch, bwd, stream);
+    case 256: return dispatch_tile<T, 256>(p, batch, bwd, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t run(const Params& p, int dtype, int batch, int head_dim, bool bwd, void* stream) {
@@ -689,8 +717,8 @@ cudaError_t run(const Params& p, int dtype, int batch, int head_dim, bool bwd, v
   // row per tile
   if (batch <= 0 || p.heads <= 0 || p.block <= 0 || p.block % 16 != 0 || p.s_q <= 0 ||
       p.s_kv <= 0 || p.s_q % p.block != 0 || p.s_kv % p.block != 0 ||
-      (p.causal && p.s_q > p.s_kv) || p.s_q / tile_for(p.block) > 65535 ||
-      p.s_kv / tile_for(p.block) > 65535 || p.max_a <= 0 || (bwd && p.max_aq <= 0))
+      (p.causal && p.s_q > p.s_kv) || p.s_q / tile_for(p.block, head_dim) > 65535 ||
+      p.s_kv / tile_for(p.block, head_dim) > 65535 || p.max_a <= 0 || (bwd && p.max_aq <= 0))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

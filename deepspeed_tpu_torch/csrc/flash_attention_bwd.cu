@@ -23,7 +23,8 @@
 // the causal mask aligned to the bottom right (key j is seen by query i when
 // j <= i + s_kv - s_q, the TPU kernel's q_offset). Inputs are [b, s, h, d]
 // read through the caller's strides (last dimension contiguous, rows 16-byte
-// aligned); any s_q and s_kv are masked in-kernel; head_dim is 64 or 128.
+// aligned); any s_q and s_kv are masked in-kernel; head_dim is 32, 64, 80,
+// 96, 128 or 256 (every width of the model registry's presets).
 //
 // What bounds it on an H100 SXM: operations. Per allowed (i, j) pair the
 // backward does five products of d multiply-adds (S and dP in both kernels,
@@ -37,10 +38,15 @@
 // no block barrier is needed until the next tile. The products are warp-level
 // tensor-core MMA (nvcuda::wmma 16x16x16, fp32 accumulate) for bf16/fp16 and
 // fp32 FMAs for fp32 inputs (full fp32, no TF32); S, dP, P and dS of a tile and
-// the fp32 dQ / dK / dV accumulators live in shared memory. fp32 dK/dV blocks
-// take 32-row q tiles so that their shared memory fits the 227 KB a block can
-// have. The C entry point launches on the caller's stream, does not
-// synchronise and returns the cudaError_t of the launches.
+// the fp32 dQ / dK / dV accumulators live in shared memory. The tiles are
+// picked per (type, head_dim) at compile time so that a block's shared memory
+// fits the 227 KB it can have (TileCfg below): fp32 dK/dV blocks take 32-row
+// q tiles; at head_dim 256 the dQ kernel takes 32-row kv tiles (fp32: 32-row
+// q tiles too) and the dK/dV kernel 32-row kv tiles, with 2 warps of 16 rows
+// for bf16/fp16 and 4 warps of 8 rows for fp32. Where head_dim is not a
+// multiple of 32 (80, 96) the FMA path's last column group is masked. The C
+// entry point launches on the caller's stream, does not synchronise and
+// returns the cudaError_t of the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,11 +58,6 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int BQ = 64;        // q rows per dQ block
-constexpr int BKV = 64;       // kv rows per tile and per dK/dV block
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = 16;      // rows per warp
 constexpr int MAX_SMEM = 232448;
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
@@ -73,8 +74,27 @@ template <typename T> struct TensorCore { static constexpr bool value = false; }
 template <> struct TensorCore<__half> { static constexpr bool value = true; };
 template <> struct TensorCore<__nv_bfloat16> { static constexpr bool value = true; };
 
-// q rows per step of a dK/dV block
-template <typename T> struct DkvRows { static constexpr int value = TensorCore<T>::value ? 64 : 32; };
+// The tiles of each kernel for (T, D). A warp owns RW rows of its block's
+// tile end to end: 16 on the tensor cores (one MMA row block), 8 or 16 with
+// fp32 FMAs.
+//   dQ block:    DQ_Q q rows, stepping over DQ_KV kv rows, 4 warps;
+//   dK/dV block: DKV_KV kv rows, stepping over DKV_Q q rows, DKV_KV / DKV_RW
+//                warps.
+template <typename T, int D>
+struct TileCfg {
+  static constexpr bool TC = TensorCore<T>::value;
+  static constexpr bool WIDE = D > 128;
+  static constexpr int DQ_Q = !TC && WIDE ? 32 : 64;
+  static constexpr int DQ_KV = WIDE ? 32 : 64;
+  static constexpr int DQ_RW = DQ_Q / 4;
+  static constexpr int DKV_KV = WIDE ? 32 : 64;
+  static constexpr int DKV_Q = TC ? 64 : 32;
+  static constexpr int DKV_RW = TC ? 16 : DKV_KV / 4;
+  static constexpr int DQ_THREADS = 128;
+  static constexpr int DKV_THREADS = DKV_KV / DKV_RW * 32;
+};
+
+constexpr int DELTA_WARPS = 4;
 
 struct Params {
   const void* q;
@@ -112,14 +132,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copy `TILE` rows x D elements into shared memory (rows >= rows_valid zero).
-template <typename T, int D, int TILE>
+// Copy `TILE` rows x D elements into shared memory (rows >= rows_valid zero),
+// NT threads.
+template <typename T, int D, int TILE, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride,
                                           int rows_valid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
   constexpr int LD = ld_t<T, D>();
-  for (int i = threadIdx.x; i < TILE * CHUNKS; i += THREADS) {
+  for (int i = threadIdx.x; i < TILE * CHUNKS; i += NT) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -128,13 +149,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
   }
 }
 
-// One warp: C[16 x N] = scale * A[16 x D] . B[N x D]^T, fp32 out. A and B are
-// row-major tiles of T in shared memory with row stride ld_t<T, D>().
-template <typename T, int D, int N>
+// One warp: C[RW x N] = scale * A[RW x D] . B[N x D]^T, fp32 out. A and B are
+// row-major tiles of T in shared memory with row stride ld_t<T, D>(). RW is
+// 16 on the tensor cores; N is a multiple of 32.
+template <typename T, int D, int N, int RW>
 __device__ __forceinline__ void mm_abt(const T* A, const T* B, float* C, float scale, int lane) {
   constexpr int LD = ld_t<T, D>();
   constexpr int LDC = ld_f<N>();
+  static_assert(N % 32 == 0, "columns per lane");
   if constexpr (TensorCore<T>::value) {
+    static_assert(RW == 16, "one MMA row block per warp");
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
 #pragma unroll
     for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
@@ -158,9 +182,9 @@ __device__ __forceinline__ void mm_abt(const T* A, const T* B, float* C, float s
     }
   } else {
     constexpr int CPL = N / 32;  // columns per lane: lane + 32 c
-    float acc[ROWS][CPL];
+    float acc[RW][CPL];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
       for (int c = 0; c < CPL; ++c) acc[i][c] = 0.0f;
     for (int k = 0; k < D; ++k) {
@@ -168,28 +192,31 @@ __device__ __forceinline__ void mm_abt(const T* A, const T* B, float* C, float s
 #pragma unroll
       for (int c = 0; c < CPL; ++c) bv[c] = to_float(B[(lane + 32 * c) * LD + k]);
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
+      for (int i = 0; i < RW; ++i) {
         const float a = to_float(A[i * LD + k]);
 #pragma unroll
         for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
       for (int c = 0; c < CPL; ++c) C[i * LDC + lane + 32 * c] = acc[i][c] * scale;
   }
 }
 
-// One warp: C[16 x D] += A[16 x N] . B[N x D]. A is a T tile with row stride
+// One warp: C[RW x D] += A[RW x N] . B[N x D]. A is a T tile with row stride
 // ld_p<T, N>(), B a row-major T tile with row stride ld_t<T, D>(), C an fp32
-// accumulator with row stride ld_f<D>().
-template <typename T, int D, int N>
+// accumulator with row stride ld_f<D>(). The FMA path gives lane the columns
+// lane + 32 c, the last group masked when D is not a multiple of 32, at most
+// 4 groups per pass.
+template <typename T, int D, int N, int RW>
 __device__ __forceinline__ void mm_ab_acc(const T* A, const T* B, float* C, int lane) {
   constexpr int LDA = ld_p<T, N>();
   constexpr int LDB = ld_t<T, D>();
   constexpr int LDC = ld_f<D>();
   if constexpr (TensorCore<T>::value) {
+    static_assert(RW == 16, "one MMA row block per warp");
 #pragma unroll
     for (int n = 0; n < D; n += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -205,27 +232,37 @@ __device__ __forceinline__ void mm_ab_acc(const T* A, const T* B, float* C, int 
       wmma::store_matrix_sync(C + n, acc, LDC, wmma::mem_row_major);
     }
   } else {
-    constexpr int CPL = D / 32;
-    float acc[ROWS][CPL];
+    constexpr int C_ALL = (D + 31) / 32;
+    constexpr int CPL = C_ALL < 4 ? C_ALL : 4;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+    for (int c0 = 0; c0 < C_ALL; c0 += CPL) {
+      float acc[RW][CPL];
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] = 0.0f;
-    for (int kk = 0; kk < N; ++kk) {
-      float bv[CPL];
+      for (int i = 0; i < RW; ++i)
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) bv[c] = to_float(B[kk * LDB + lane + 32 * c]);
+        for (int c = 0; c < CPL; ++c) acc[i][c] = 0.0f;
+      for (int kk = 0; kk < N; ++kk) {
+        float bv[CPL];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float a = to_float(A[i * LDA + kk]);
+        for (int c = 0; c < CPL; ++c) {
+          const int col = lane + 32 * (c0 + c);
+          bv[c] = col < D ? to_float(B[kk * LDB + col]) : 0.0f;
+        }
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
+        for (int i = 0; i < RW; ++i) {
+          const float a = to_float(A[i * LDA + kk]);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(a, bv[c], acc[i][c]);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const int col = lane + 32 * (c0 + c);
+          if (col < D) C[i * LDC + col] += acc[i][c];
+        }
     }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) C[i * LDC + lane + 32 * c] += acc[i][c];
   }
 }
 
@@ -233,8 +270,8 @@ __device__ __forceinline__ void mm_ab_acc(const T* A, const T* B, float* C, int 
 // delta = rowsum(dO * O): one warp per (b, i, h) row
 // ---------------------------------------------------------------------------
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) delta_kernel(const Params p, int batch) {
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+__global__ void __launch_bounds__(DELTA_WARPS * 32) delta_kernel(const Params p, int batch) {
+  const long long row = (long long)blockIdx.x * DELTA_WARPS + threadIdx.x / 32;
   const long long rows = (long long)batch * p.s_q * p.heads;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
@@ -255,6 +292,8 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(const Params p, int batc
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 struct DqSmem {
+  static constexpr int BQ = TileCfg<T, D>::DQ_Q;
+  static constexpr int BKV = TileCfg<T, D>::DQ_KV;
   static constexpr int LDT = ld_t<T, D>();
   static constexpr int LDS = ld_f<BKV>();
   static constexpr int LDP = ld_p<T, BKV>();
@@ -276,8 +315,11 @@ struct DqSmem {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
+__global__ void __launch_bounds__(TileCfg<T, D>::DQ_THREADS) dq_kernel(const Params p) {
   using S = DqSmem<T, D>;
+  constexpr int BQ = S::BQ, BKV = S::BKV;
+  constexpr int RW = TileCfg<T, D>::DQ_RW;
+  constexpr int NT = TileCfg<T, D>::DQ_THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + S::q_off);
   T* sDO = reinterpret_cast<T*>(smem + S::do_off);
@@ -300,7 +342,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   const int q_offset = p.s_kv - p.s_q;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * ROWS;
+  const int r0 = warp * RW;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][2] + q0 * p.st[Q][1];
   const T* dog = static_cast<const T*>(p.dout) + b * p.st[DO][0] + h * p.st[DO][2] +
@@ -309,10 +351,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   const T* vg = static_cast<const T*>(p.v) + b * p.st[V][0] + g * p.st[V][2];
   const long long stat = ((long long)b * p.heads + h) * p.s_q + q0;
 
-  load_tile<T, D, BQ>(sQ, qg, p.st[Q][1], q_rows);
-  load_tile<T, D, BQ>(sDO, dog, p.st[DO][1], q_rows);
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) sAcc[(i / D) * S::LDA + i % D] = 0.0f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
+  load_tile<T, D, BQ, NT>(sQ, qg, p.st[Q][1], q_rows);
+  load_tile<T, D, BQ, NT>(sDO, dog, p.st[DO][1], q_rows);
+  for (int i = threadIdx.x; i < BQ * D; i += NT) sAcc[(i / D) * S::LDA + i % D] = 0.0f;
+  for (int i = threadIdx.x; i < BQ; i += NT) {
     sLse[i] = i < q_rows ? p.lse[stat + i] : 0.0f;
     sDelta[i] = i < q_rows ? p.delta[stat + i] : 0.0f;
   }
@@ -323,14 +365,14 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile's K/V are consumed
     const int kv_rows = min(BKV, p.s_kv - kv0);
-    load_tile<T, D, BKV>(sK, kg + kv0 * p.st[K][1], p.st[K][1], kv_rows);
-    load_tile<T, D, BKV>(sV, vg + kv0 * p.st[V][1], p.st[V][1], kv_rows);
+    load_tile<T, D, BKV, NT>(sK, kg + kv0 * p.st[K][1], p.st[K][1], kv_rows);
+    load_tile<T, D, BKV, NT>(sV, vg + kv0 * p.st[V][1], p.st[V][1], kv_rows);
     __syncthreads();
 
-    mm_abt<T, D, BKV>(sQ + r0 * S::LDT, sK, sS + r0 * S::LDS, p.scale, lane);   // S
-    mm_abt<T, D, BKV>(sDO + r0 * S::LDT, sV, sDP + r0 * S::LDS, 1.0f, lane);    // dP
+    mm_abt<T, D, BKV, RW>(sQ + r0 * S::LDT, sK, sS + r0 * S::LDS, p.scale, lane);   // S
+    mm_abt<T, D, BKV, RW>(sDO + r0 * S::LDT, sV, sDP + r0 * S::LDS, 1.0f, lane);    // dP
     __syncwarp();
-    for (int i = 0; i < ROWS; ++i) {
+    for (int i = 0; i < RW; ++i) {
       const int r = r0 + i;
       const int limit = q0 + r + q_offset;  // last kv index row r attends to
       const float lse = sLse[r];
@@ -344,12 +386,12 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
       }
     }
     __syncwarp();
-    mm_ab_acc<T, D, BKV>(sDS + r0 * S::LDP, sK, sAcc + r0 * S::LDA, lane);   // dQ += dS K
+    mm_ab_acc<T, D, BKV, RW>(sDS + r0 * S::LDP, sK, sAcc + r0 * S::LDA, lane);   // dQ += dS K
   }
   __syncthreads();
 
   T* dqg = static_cast<T*>(p.dq) + b * p.st[DQ][0] + h * p.st[DQ][2] + q0 * p.st[DQ][1];
-  for (int i = threadIdx.x; i < q_rows * D; i += THREADS) {
+  for (int i = threadIdx.x; i < q_rows * D; i += NT) {
     const int r = i / D;
     const int c = i % D;
     dqg[r * p.st[DQ][1] + c] = from_float<T>(sAcc[r * S::LDA + c]);
@@ -361,7 +403,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 struct DkvSmem {
-  static constexpr int NQ = DkvRows<T>::value;
+  static constexpr int BKV = TileCfg<T, D>::DKV_KV;
+  static constexpr int NQ = TileCfg<T, D>::DKV_Q;
   static constexpr int LDT = ld_t<T, D>();
   static constexpr int LDS = ld_f<NQ>();
   static constexpr int LDP = ld_p<T, NQ>();
@@ -385,9 +428,11 @@ struct DkvSmem {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(TileCfg<T, D>::DKV_THREADS) dkv_kernel(const Params p) {
   using S = DkvSmem<T, D>;
-  constexpr int NQ = S::NQ;
+  constexpr int BKV = S::BKV, NQ = S::NQ;
+  constexpr int RW = TileCfg<T, D>::DKV_RW;
+  constexpr int NT = TileCfg<T, D>::DKV_THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem + S::k_off);
   T* sV = reinterpret_cast<T*>(smem + S::v_off);
@@ -410,13 +455,13 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
   const int q_offset = p.s_kv - p.s_q;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = warp * ROWS;
+  const int r0 = warp * RW;
 
-  load_tile<T, D, BKV>(sK, static_cast<const T*>(p.k) + b * p.st[K][0] + g * p.st[K][2] +
-                               kv0 * p.st[K][1], p.st[K][1], kv_rows);
-  load_tile<T, D, BKV>(sV, static_cast<const T*>(p.v) + b * p.st[V][0] + g * p.st[V][2] +
-                               kv0 * p.st[V][1], p.st[V][1], kv_rows);
-  for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
+  load_tile<T, D, BKV, NT>(sK, static_cast<const T*>(p.k) + b * p.st[K][0] + g * p.st[K][2] +
+                                   kv0 * p.st[K][1], p.st[K][1], kv_rows);
+  load_tile<T, D, BKV, NT>(sV, static_cast<const T*>(p.v) + b * p.st[V][0] + g * p.st[V][2] +
+                                   kv0 * p.st[V][1], p.st[V][1], kv_rows);
+  for (int i = threadIdx.x; i < BKV * D; i += NT) {
     sDK[(i / D) * S::LDA + i % D] = 0.0f;
     sDV[(i / D) * S::LDA + i % D] = 0.0f;
   }
@@ -429,20 +474,20 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
     for (int q0 = q_start; q0 < p.s_q; q0 += NQ) {
       __syncthreads();  // the previous q tile is consumed
       const int q_rows = min(NQ, p.s_q - q0);
-      load_tile<T, D, NQ>(sQ, static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][2] +
-                                  q0 * p.st[Q][1], p.st[Q][1], q_rows);
-      load_tile<T, D, NQ>(sDO, static_cast<const T*>(p.dout) + b * p.st[DO][0] +
-                                   h * p.st[DO][2] + q0 * p.st[DO][1], p.st[DO][1], q_rows);
-      for (int i = threadIdx.x; i < NQ; i += THREADS) {
+      load_tile<T, D, NQ, NT>(sQ, static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][2] +
+                                      q0 * p.st[Q][1], p.st[Q][1], q_rows);
+      load_tile<T, D, NQ, NT>(sDO, static_cast<const T*>(p.dout) + b * p.st[DO][0] +
+                                       h * p.st[DO][2] + q0 * p.st[DO][1], p.st[DO][1], q_rows);
+      for (int i = threadIdx.x; i < NQ; i += NT) {
         sLse[i] = i < q_rows ? p.lse[stat + q0 + i] : 0.0f;
         sDelta[i] = i < q_rows ? p.delta[stat + q0 + i] : 0.0f;
       }
       __syncthreads();
 
-      mm_abt<T, D, NQ>(sK + r0 * S::LDT, sQ, sST + r0 * S::LDS, p.scale, lane);  // S^T
-      mm_abt<T, D, NQ>(sV + r0 * S::LDT, sDO, sDPT + r0 * S::LDS, 1.0f, lane);  // dP^T
+      mm_abt<T, D, NQ, RW>(sK + r0 * S::LDT, sQ, sST + r0 * S::LDS, p.scale, lane);  // S^T
+      mm_abt<T, D, NQ, RW>(sV + r0 * S::LDT, sDO, sDPT + r0 * S::LDS, 1.0f, lane);  // dP^T
       __syncwarp();
-      for (int jj = 0; jj < ROWS; ++jj) {
+      for (int jj = 0; jj < RW; ++jj) {
         const int j = r0 + jj;
         const int col = kv0 + j;
         for (int i = lane; i < NQ; i += 32) {
@@ -455,15 +500,15 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(const Params p) {
         }
       }
       __syncwarp();
-      mm_ab_acc<T, D, NQ>(sPT + r0 * S::LDP, sDO, sDV + r0 * S::LDA, lane);   // dV += P^T dO
-      mm_ab_acc<T, D, NQ>(sDST + r0 * S::LDP, sQ, sDK + r0 * S::LDA, lane);   // dK += dS^T Q
+      mm_ab_acc<T, D, NQ, RW>(sPT + r0 * S::LDP, sDO, sDV + r0 * S::LDA, lane);   // dV += P^T dO
+      mm_ab_acc<T, D, NQ, RW>(sDST + r0 * S::LDP, sQ, sDK + r0 * S::LDA, lane);   // dK += dS^T Q
     }
   }
   __syncthreads();
 
   T* dkg = static_cast<T*>(p.dk) + b * p.st[DK][0] + g * p.st[DK][2] + kv0 * p.st[DK][1];
   T* dvg = static_cast<T*>(p.dv) + b * p.st[DV][0] + g * p.st[DV][2] + kv0 * p.st[DV][1];
-  for (int i = threadIdx.x; i < kv_rows * D; i += THREADS) {
+  for (int i = threadIdx.x; i < kv_rows * D; i += NT) {
     const int r = i / D;
     const int c = i % D;
     dkg[r * p.st[DK][1] + c] = from_float<T>(sDK[r * S::LDA + c]);
@@ -481,30 +526,38 @@ cudaError_t opt_in(Kernel kernel, size_t bytes) {
 
 template <typename T, int D>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  using C = TileCfg<T, D>;
   const long long rows = (long long)batch * p.s_q * p.heads;
-  delta_kernel<T, D><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(p, batch);
+  delta_kernel<T, D><<<(unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS), DELTA_WARPS * 32, 0,
+                       stream>>>(p, batch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = opt_in(dq_kernel<T, D>, DqSmem<T, D>::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 dq_grid(batch * p.heads, (p.s_q + BQ - 1) / BQ);
-  dq_kernel<T, D><<<dq_grid, THREADS, DqSmem<T, D>::bytes, stream>>>(p);
+  const dim3 dq_grid(batch * p.heads, (p.s_q + C::DQ_Q - 1) / C::DQ_Q);
+  dq_kernel<T, D><<<dq_grid, C::DQ_THREADS, DqSmem<T, D>::bytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = opt_in(dkv_kernel<T, D>, DkvSmem<T, D>::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 dkv_grid(batch * p.kv_heads, (p.s_kv + BKV - 1) / BKV);
-  dkv_kernel<T, D><<<dkv_grid, THREADS, DkvSmem<T, D>::bytes, stream>>>(p);
+  const dim3 dkv_grid(batch * p.kv_heads, (p.s_kv + C::DKV_KV - 1) / C::DKV_KV);
+  dkv_kernel<T, D><<<dkv_grid, C::DKV_THREADS, DkvSmem<T, D>::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const Params& p, int batch, int head_dim, cudaStream_t stream) {
-  if (head_dim == 64) return launch<T, 64>(p, batch, stream);
-  if (head_dim == 128) return launch<T, 128>(p, batch, stream);
-  return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 32: return launch<T, 32>(p, batch, stream);
+    case 64: return launch<T, 64>(p, batch, stream);
+    case 80: return launch<T, 80>(p, batch, stream);
+    case 96: return launch<T, 96>(p, batch, stream);
+    case 128: return launch<T, 128>(p, batch, stream);
+    case 256: return launch<T, 256>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -12,7 +12,8 @@
 // when causal, j <= i + (s_kv - s_q): the mask is aligned to the bottom right,
 // as the TPU kernel's q_offset is. Inputs are [b, s, h, d] read through the
 // strides the caller gives (the last dimension contiguous); any s_q, s_kv are
-// masked in-kernel; head_dim is 64 or 128.
+// masked in-kernel; head_dim is 32, 64, 80, 96, 128 or 256 (every width of
+// the model registry's presets; each a multiple of 16, as wmma needs).
 //
 // What bounds it on an H100 SXM: operations 4 * b * h * d * (allowed (i, j)
 // pairs) -- about 4*b*h*s_q*s_kv*d, halved when causal -- at 989 TFLOP/s in
@@ -25,13 +26,17 @@
 // later work):
 //   * one thread block of 4 warps per (batch*head, 64-row q tile); the q tile
 //     is staged in shared memory once;
-//   * 64-row K and V tiles are staged through shared memory with 16-byte loads,
-//     rows past s_kv zero-filled; tiles wholly above the causal diagonal are
-//     never loaded;
+//   * 64-row K and V tiles (32-row for fp32 at head_dim 256, whose q, k, v
+//     and fp32 O tiles would otherwise pass the 227 KB a block can have) are
+//     staged through shared memory with 16-byte loads, rows past s_kv
+//     zero-filled; tiles wholly above the causal diagonal are never loaded;
 //   * each warp owns 16 q rows end to end: S = Q K^T with warp-level tensor-core
 //     MMA (nvcuda::wmma, 16x16x16, fp32 accumulate) for bf16/fp16, with fp32
-//     FMAs for fp32 inputs; an online softmax in fp32 (row max and sum by warp
-//     shuffles) masks the ragged tail and the diagonal; P is rounded to the
+//     FMAs for fp32 inputs (each lane owns the columns lane + 32 c, the last
+//     group masked where head_dim is not a multiple of 32, as at 80 and 96,
+//     at most 4 groups at a time to bound the registers); an online softmax
+//     in fp32 (row max and sum by warp shuffles) masks the ragged tail and
+//     the diagonal; P is rounded to the
 //     input type (as the TPU kernel's p.astype(v.dtype)) and O += P V
 //     accumulates in an fp32 tile in shared memory;
 //   * the last step divides by the row sum and writes o in the input type and,
@@ -52,7 +57,6 @@ namespace {
 using namespace nvcuda;
 
 constexpr int BQ = 64;                      // q rows per block
-constexpr int BKV = 64;                     // kv rows per tile
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / WARPS;   // 16: one MMA row block per warp
@@ -68,12 +72,17 @@ template <typename T> struct TensorCore { static constexpr bool value = false; }
 template <> struct TensorCore<__half> { static constexpr bool value = true; };
 template <> struct TensorCore<__nv_bfloat16> { static constexpr bool value = true; };
 
+// kv rows per tile: 64, or 32 for fp32 at head_dim 256
+template <typename T, int D>
+__host__ __device__ constexpr int kv_tile() { return sizeof(T) == 4 && D > 128 ? 32 : 64; }
+
 // Shared-memory layout. Row strides are padded by 16 bytes: rows stay 16-byte
 // aligned for the vector copies, every 16x16 MMA fragment starts on a 32-byte
 // boundary, and wmma's ldm rules hold (a multiple of 8 elements for 16-bit
 // types, of 4 for fp32).
 template <typename T, int D>
 struct Smem {
+  static constexpr int BKV = kv_tile<T, D>();
   static constexpr int LD_T = D + 16 / (int)sizeof(T);   // q, k, v rows
   static constexpr int LD_S = BKV + 4;                   // fp32 logits / fp32 P
   static constexpr int LD_P = BKV + 8;                   // 16-bit P
@@ -88,6 +97,7 @@ struct Smem {
   static constexpr size_t m_off = o_off + sizeof(float) * BQ * LD_O;
   static constexpr size_t l_off = m_off + sizeof(float) * BQ;
   static constexpr size_t bytes = l_off + sizeof(float) * BQ;
+  static_assert(bytes <= 232448, "forward shared memory");
 };
 
 struct Params {
@@ -114,14 +124,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copy `rows` x D elements (rows 16-byte aligned in global memory) into a
-// 64-row shared tile; rows >= rows_valid are zero-filled.
-template <typename T, int D>
+// Copy ROWS_N x D elements (rows 16-byte aligned in global memory) into a
+// shared tile; rows >= rows_valid are zero-filled.
+template <typename T, int D, int ROWS_N>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride,
                                           int rows_valid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += THREADS) {
+  for (int i = threadIdx.x; i < ROWS_N * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -135,6 +145,7 @@ template <typename T, int D>
 __device__ __forceinline__ void scores_mma(const T* sQ, const T* sK, float* sS, int r0,
                                            float scale) {
   using S = Smem<T, D>;
+  constexpr int BKV = S::BKV;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BKV / 16];
 #pragma unroll
   for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
@@ -162,6 +173,7 @@ __device__ __forceinline__ void scores_mma(const T* sQ, const T* sK, float* sS, 
 template <typename T, int D>
 __device__ __forceinline__ void pv_mma(const T* sP, const T* sV, float* sO, int r0) {
   using S = Smem<T, D>;
+  constexpr int BKV = S::BKV;
 #pragma unroll
   for (int n = 0; n < D; n += 16) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -178,62 +190,79 @@ __device__ __forceinline__ void pv_mma(const T* sP, const T* sV, float* sO, int 
   }
 }
 
-// fp32 inputs: the same two products with FMAs (full fp32, no TF32).
+// fp32 inputs: the same two products with FMAs (full fp32, no TF32). Lane
+// owns kv columns lane + 32 j of the scores and head columns lane + 32 c of
+// the output, the last group masked when D is not a multiple of 32.
 template <int D>
 __device__ __forceinline__ void scores_fma(const float* sQ, const float* sK, float* sS, int r0,
                                            int lane, float scale) {
   using S = Smem<float, D>;
-  float acc[ROWS_PER_WARP][2];
+  constexpr int J = S::BKV / 32;
+  float acc[ROWS_PER_WARP][J];
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) acc[i][0] = acc[i][1] = 0.0f;
+  for (int i = 0; i < ROWS_PER_WARP; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.0f;
   for (int k = 0; k < D; ++k) {
-    const float k0 = sK[lane * S::LD_T + k];
-    const float k1 = sK[(lane + 32) * S::LD_T + k];
+    float kv[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) kv[j] = sK[(lane + 32 * j) * S::LD_T + k];
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const float qv = sQ[(r0 + i) * S::LD_T + k];
-      acc[i][0] = fmaf(qv, k0, acc[i][0]);
-      acc[i][1] = fmaf(qv, k1, acc[i][1]);
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(qv, kv[j], acc[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    sS[(r0 + i) * S::LD_S + lane] = acc[i][0] * scale;
-    sS[(r0 + i) * S::LD_S + lane + 32] = acc[i][1] * scale;
-  }
+  for (int i = 0; i < ROWS_PER_WARP; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) sS[(r0 + i) * S::LD_S + lane + 32 * j] = acc[i][j] * scale;
 }
 
 template <int D>
 __device__ __forceinline__ void pv_fma(const float* sP, const float* sV, float* sO, int r0,
                                        int lane) {
   using S = Smem<float, D>;
-  constexpr int C = D / 32;
-  float acc[ROWS_PER_WARP][C];
+  constexpr int C_ALL = (D + 31) / 32;
+  constexpr int C = C_ALL < 4 ? C_ALL : 4;  // column groups per pass
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i)
+  for (int c0 = 0; c0 < C_ALL; c0 += C) {
+    float acc[ROWS_PER_WARP][C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  for (int kk = 0; kk < BKV; ++kk) {
-    float vv[C];
+    for (int i = 0; i < ROWS_PER_WARP; ++i)
 #pragma unroll
-    for (int c = 0; c < C; ++c) vv[c] = sV[kk * S::LD_T + lane + 32 * c];
+      for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+    for (int kk = 0; kk < S::BKV; ++kk) {
+      float vv[C];
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const float p = sP[(r0 + i) * S::LD_S + kk];
+      for (int c = 0; c < C; ++c) {
+        const int col = lane + 32 * (c0 + c);
+        vv[c] = col < D ? sV[kk * S::LD_T + col] : 0.0f;
+      }
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      for (int i = 0; i < ROWS_PER_WARP; ++i) {
+        const float p = sP[(r0 + i) * S::LD_S + kk];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
     }
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int col = lane + 32 * (c0 + c);
+        if (col < D) sO[(r0 + i) * S::LD_O + col] += acc[i][c];
+      }
   }
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) sO[(r0 + i) * S::LD_O + lane + 32 * c] += acc[i][c];
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   using S = Smem<T, D>;
   constexpr bool kTC = TensorCore<T>::value;
+  constexpr int BKV = S::BKV;
+  constexpr int J = BKV / 32;  // kv columns per lane in the softmax
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + S::q_off);
   T* sK = reinterpret_cast<T*>(smem + S::k_off);
@@ -260,7 +289,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
 
-  load_tile<T, D>(sQ, qg, p.q_ss, q_rows);
+  load_tile<T, D, BQ>(sQ, qg, p.q_ss, q_rows);
   for (int i = threadIdx.x; i < BQ * D; i += THREADS) sO[(i / D) * S::LD_O + i % D] = 0.0f;
   for (int i = threadIdx.x; i < BQ; i += THREADS) {
     sM[i] = -1e30f;
@@ -274,8 +303,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // the previous tile's K/V are consumed
     const int kv_rows = min(BKV, p.s_kv - kv0);
-    load_tile<T, D>(sK, kg + kv0 * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D>(sV, vg + kv0 * p.v_ss, p.v_ss, kv_rows);
+    load_tile<T, D, BKV>(sK, kg + kv0 * p.k_ss, p.k_ss, kv_rows);
+    load_tile<T, D, BKV>(sV, vg + kv0 * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
     if constexpr (kTC) {
@@ -285,15 +314,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     }
     __syncwarp();
 
-    // online softmax over this warp's 16 rows; lane owns columns lane, lane+32
+    // online softmax over this warp's 16 rows; lane owns columns lane + 32 j
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const int r = r0 + i;
       const int limit = q0 + r + q_offset;  // last kv index row r may attend to
-      float s[2];
-      bool ok[2];
+      float s[J];
+      bool ok[J];
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < J; ++j) {
         const int c = lane + 32 * j;
         const int col = kv0 + c;
         ok[j] = col < p.s_kv && (!p.causal || col <= limit);
@@ -303,10 +332,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
       mx = warp_max(mx);
       const float m_old = sM[r];
       const float m_new = fmaxf(m_old, mx);
-      float pr[2];
+      float pr[J];
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < J; ++j) {
         pr[j] = ok[j] ? expf(s[j] - m_new) : 0.0f;
         sum += pr[j];
       }
@@ -318,7 +347,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
         sL[r] = sL[r] * corr + sum;
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < J; ++j) {
         const int c = lane + 32 * j;
         if constexpr (kTC) {
           sP[r * S::LD_P + c] = from_float<T>(pr[j]);
@@ -365,9 +394,15 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_d(const Params& p, int batch, int head_dim, cudaStream_t stream) {
-  if (head_dim == 64) return launch<T, 64>(p, batch, stream);
-  if (head_dim == 128) return launch<T, 128>(p, batch, stream);
-  return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 32: return launch<T, 32>(p, batch, stream);
+    case 64: return launch<T, 64>(p, batch, stream);
+    case 80: return launch<T, 80>(p, batch, stream);
+    case 96: return launch<T, 96>(p, batch, stream);
+    case 128: return launch<T, 128>(p, batch, stream);
+    case 256: return launch<T, 256>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

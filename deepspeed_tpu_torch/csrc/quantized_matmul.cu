@@ -1,44 +1,71 @@
 // Weight-only int8 / int4 dequant-matmul for Hopper (sm_90a), bf16 / fp16 / fp32 x.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/quantized_matmul.py:
-// _int8_kernel and _int4_kernel (the two pallas_calls of quantized_matmul).
+// _int8_kernel and _int4_kernel (the pallas_calls of quantized_matmul at :161
+// and :176).
 //
 //   y[m, n] = sum_k x[m, k] * w[k, n],   w[k, n] = float(q[k, n]) * float(scale[k / g, n])
 //
 // q is int8 [K, N], or for 4 bits uint8 [K/2, N] with two rows a byte: packed
 // row p holds row 2p in its low nibble and row 2p+1 in its high nibble, each
 // stored + 8 (ops/quantizer.py pack_int4). scale is [K/g, N] in x's type (the
-// model casts its fp32 scales to the compute type, as the JAX model does);
-// it is widened to fp32 on load. For bf16 x, w is rounded to bf16 and the
-// product runs on the tensor cores (wmma 16x16x16) with fp32 accumulation;
-// for fp16 and fp32 x, w stays fp32 and the product is fp32 FMA (the TPU
-// kernel's dot_dtype). The sum is cast to x's type.
+// model casts its fp32 scales to the compute type, as the JAX model does).
+// For bf16 x, w is rounded to bf16 (bf16(float(q) * float(scale))) and the
+// product runs on the tensor cores with fp32 accumulation; for fp16 and fp32
+// x, w stays fp32 and the product is fp32 FMA (the TPU kernel's dot_dtype).
+// The sum is cast to x's type.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
 //   * decode (m of 1-8): the weight bytes. At m 8, k 4096, n 11008 the int8
 //     weights are 45.1 MB plus 1.4 MB of bf16 scales: 13.9 us; int4 24.0 MB:
 //     7.1 us (the unquantized bf16 GEMM reads 90 MB: 27 us);
 //   * prefill (m 2048): the operations, 2 * 2048 * 4096 * 11008 = 185 GFLOP:
-//     0.19 ms.
+//     0.19 ms, and on the way there the dequantization: every weight element
+//     is turned into bf16 once per 128-row block of x, on the CUDA cores.
 //
-// Design: the simple tiled product. One block per (m tile, n tile) holds its
-// fp32 accumulators for the whole k sweep (the TPU grid's sequential k axis
-// becomes the block's own loop): 128 x 128 tiles and 8 warps for bf16, 64 x
-// 64 and 4 warps for fp16/fp32. Each k step stages an x tile and a
-// DEQUANTIZED w tile in shared memory (4 columns per 4-byte weight load):
-// the int4 nibbles are unpacked in registers straight into interleaved rows
-// (no even/odd split of x as on the TPU), and the group of row r is r / g, so
-// any g dividing k is taken, odd ones included. Ragged m, n and k tails are
-// masked in the kernel and nothing is padded on the host. When the output
-// tiles are too few to fill the card (a short prefill), k is split and the
-// fp32 partials are added in order by a second kernel. For m <= 16 (decode)
-// a split-k GEMV takes over (below): 4-byte weight loads, each thread 4
-// columns, the same partials. Both are simple designs: 16-byte loads, a
-// pipelined ring, or wgmma + TMA are later work.
+// Three routes, picked by the caller as a pure function of the shape
+// (ops/cuda/quantized_matmul.py kernel_route) and passed in:
+//
+//   * wgmma (the prefill, m > 16, bf16 x, k a multiple of 64, n of 16, g a
+//     multiple of 64 or one of 8, 16, 32): one block per output tile of 128
+//     columns and 256 rows (each of the two consumer warpgroups owns two
+//     64-row tiles), or 128 rows for a grid of 256-row tiles too small to
+//     fill the card; k in steps of 64. Thread 0 keeps TMA loads
+//     (cp.async.bulk.tensor, descriptors encoded on the host) of the step's x
+//     tile [rows, 64] (128-byte swizzle), q tile [64, 128] (int4: [32, 128]
+//     bytes) and scale rows in flight in a ring of 4 stages (5 for 128 rows),
+//     each completing on its stage's mbarrier. Every step the 256 threads
+//     dequantize the q tile in shared memory into a bf16 B tile, K-major with
+//     the 128-byte swizzle wgmma reads (int8 and nibbles to float exactly by
+//     a byte permute into 2^23's mantissa, one bf16x2 multiply by the scale:
+//     the rounding the plain version pins), fence it for the async proxy, and
+//     each warpgroup issues wgmma.mma_async m64n128k16 over A = x and B = the
+//     dequantized tile, both from shared memory, accumulating in registers.
+//     The products of one step run while the next step is dequantized (wgmma
+//     wait_group 1; three B tiles rotate so that a slow warpgroup's products
+//     never see their B overwritten). The epilogue casts to bf16 in registers
+//     and stores with the ragged m and n masked. What bounds it: the tensor
+//     cores' operations, and on the way there the dequantization on the CUDA
+//     cores (about 3 instructions an element, every weight element once per
+//     block of x rows: the 256-row tile halves that per operation);
+//   * wmma (the other m > 16 shapes: fp16/fp32 x, ragged k or n, odd groups):
+//     the simple tiled product. One block per (m tile, n tile) holds its
+//     fp32 accumulators for the whole k sweep: 128 x 128 tiles and 8 warps for
+//     bf16 (nvcuda::wmma 16x16x16), 64 x 64 and 4 warps for fp16/fp32 (FMA).
+//     Each k step stages an x tile and a DEQUANTIZED w tile in shared memory;
+//     the group of row r is r / g, so any g dividing k is taken, odd ones
+//     included, and ragged m, n and k tails are masked;
+//   * gemv (m <= 16, decode): a split-k GEMV, below.
+// A wgmma or wmma grid too small to fill the card (a short prefill) splits k,
+// and a second kernel adds the fp32 partials in order, so the result does not
+// depend on the launch.
 //
 // The C entry point launches on the caller's stream, does not synchronise and
-// returns the cudaError_t of its launches.
+// returns the cudaError_t of its launches. The TMA descriptors are encoded
+// with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library links the CUDA runtime only (no -lcuda).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -387,17 +414,388 @@ cudaError_t launch_tile(const void* x, const void* q, const void* scale, void* y
   return cudaGetLastError();
 }
 
+// -- prefill on Hopper: TMA + wgmma ----------------------------------------------
+
+// MT: 64-row m tiles per warpgroup, so 128 * MT x rows per block (the caller
+// picks 2 for a grid that fills the card, else 1)
+constexpr int WG_BN = 128;          // n per block
+constexpr int WG_BK = 64;           // k per step: one 128-byte swizzle row of bf16
+constexpr int WG_THREADS = 256;     // two consumer warpgroups
+constexpr int WG_SCALE_ROWS = 8;    // scale rows a stage holds (group 8: 64 / 8)
+constexpr int WG_B_BUFS = 3;        // dequantized B tiles in rotation
+
+template <int BITS, int MT>
+struct WgSmem {
+  static constexpr int BM = 128 * MT;
+  static constexpr int BN = WG_BN;
+  static constexpr int STAGES = MT == 1 ? 5 : 4;  // TMA ring; STAGES - 2 steps load ahead
+  static constexpr int A_BYTES = BM * WG_BK * 2;
+  static constexpr int Q_BYTES = (BITS == 8 ? WG_BK : WG_BK / 2) * BN;
+  static constexpr int S_BYTES = WG_SCALE_ROWS * BN * 2;
+  static constexpr int STAGE = (A_BYTES + Q_BYTES + S_BYTES + 1023) / 1024 * 1024;
+  static constexpr int B_BYTES = BN * WG_BK * 2;
+  static constexpr int b_off = STAGES * STAGE;
+  static constexpr int bar_off = b_off + WG_B_BUFS * B_BYTES;
+  static constexpr int bytes = bar_off + 8 * STAGES + 1024;  // + slack to align the base to 1024
+  static_assert(bytes <= 232448, "wgmma route shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor of a K-major tile with the 128-byte
+// swizzle: start >> 4, leading offset 16 B (unused), stride 1024 B between
+// 8-row groups, swizzle mode 1 (128 B)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], both from shared memory (128-byte
+// swizzled, K-major), fp32 accumulators in registers
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One thread's share of a step's dequantization: rows 8o..8o+7 (one 16-byte
+// chunk of a B row) of the 4 columns 4 quad..4 quad+3. q comes as one 4-byte
+// word per row (int4: per packed row, holding two rows); each element becomes
+// a float exactly (its biased byte or nibble permuted into the mantissa of
+// 2^23, less the bias), a pair of rows is packed to bf16x2 (exact, integers
+// below 2^8) and multiplied by the column's scale pair in bf16x2: one
+// rounding of the exact product, bf16(float(q) * float(scale)). The columns
+// are written in an order rotated by (lane / 2) % 4, so that the 8 lanes of
+// each quarter warp store to 8 different 16-byte bank groups of the swizzled
+// tile.
+template <int BITS>
+__device__ __forceinline__ void dequant_unit(const uint8_t* sq, const __nv_bfloat16* srow,
+                                             uint8_t* bbuf, int o, int quad, int rot) {
+  constexpr int BN = WG_BN;
+  const uint2 sv = *reinterpret_cast<const uint2*>(srow + 4 * quad);
+  uint32_t w[BITS == 8 ? 8 : 4];
+#pragma unroll
+  for (int i = 0; i < (BITS == 8 ? 8 : 4); ++i)
+    w[i] = *reinterpret_cast<const uint32_t*>(sq + ((BITS == 8 ? 8 : 4) * o + i) * BN + 4 * quad);
+#pragma unroll
+  for (int slot = 0; slot < 4; ++slot) {
+    const int j = (slot + rot) & 3;  // the column of this slot within the quad
+    const int n = 4 * quad + j;
+    const uint32_t sw = j < 2 ? sv.x : sv.y;
+    const uint32_t s16 = (j & 1) ? (sw >> 16) : (sw & 0xFFFFu);
+    const uint32_t s2 = s16 | (s16 << 16);
+    const __nv_bfloat162 sc = *reinterpret_cast<const __nv_bfloat162*>(&s2);
+    uint32_t out[4];
+#pragma unroll
+    for (int pr = 0; pr < 4; ++pr) {  // rows 8o + 2pr, 8o + 2pr + 1
+      float f0, f1;
+      if constexpr (BITS == 8) {
+        const uint32_t sel = 0x7540u | (uint32_t)j;  // [byte j, 0, 0, 0x4B]
+        f0 = __uint_as_float(__byte_perm(w[2 * pr] ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.0f;
+        f1 = __uint_as_float(__byte_perm(w[2 * pr + 1] ^ 0x80808080u, 0x4B000000u, sel)) -
+             8388736.0f;
+      } else {
+        const uint32_t byte = (w[pr] >> (8 * j)) & 0xFFu;
+        f0 = __uint_as_float(0x4B000000u | (byte & 0xFu)) - 8388616.0f;  // low nibble: row 2p
+        f1 = __uint_as_float(0x4B000000u | (byte >> 4)) - 8388616.0f;    // high: row 2p + 1
+      }
+      out[pr] = bf162_bits(__hmul2(__floats2bfloat162_rn(f0, f1), sc));
+    }
+    // row n of the K-major B tile, chunk o, 128-byte swizzle: chunk o ^ (n % 8)
+    *reinterpret_cast<uint4*>(bbuf + n * 128 + ((o ^ (n & 7)) << 4)) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// The loads of k step t into stage t % STAGES, completing on its mbarrier
+// (issued by one thread): the x tile, the q tile and the step's scale rows.
+template <int BITS, int MT>
+__device__ __forceinline__ void wg_issue(uint32_t base, const CUtensorMap* tm_x,
+                                         const CUtensorMap* tm_q, const CUtensorMap* tm_s, int t,
+                                         int k_begin, int m0, int n0, int group,
+                                         uint32_t tx_bytes) {
+  using Sm = WgSmem<BITS, MT>;
+  const int st = t % Sm::STAGES;
+  const int k0 = k_begin + t * WG_BK;
+  const uint32_t dst = base + st * Sm::STAGE;
+  const uint32_t bar = base + Sm::bar_off + 8 * st;
+  mbar_expect_tx(bar, tx_bytes);
+  tma_load_2d(dst, tm_x, bar, k0, m0);
+  tma_load_2d(dst + Sm::A_BYTES, tm_q, bar, n0, BITS == 8 ? k0 : k0 / 2);
+  tma_load_2d(dst + Sm::A_BYTES + Sm::Q_BYTES, tm_s, bar, n0, k0 / group);
+}
+
+// One block per (128 * MT-row m tile, 128-column n tile[, k split]). PARTIAL:
+// the block sweeps only k range blockIdx.z (k_per_split rows, a multiple of
+// 64) and writes its fp32 partial [split, M, N]; else all of k into y.
+template <int BITS, int MT, bool PARTIAL>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    qmm_wgmma_kernel(__grid_constant__ const CUtensorMap tm_x,
+                     __grid_constant__ const CUtensorMap tm_q,
+                     __grid_constant__ const CUtensorMap tm_s, __nv_bfloat16* __restrict__ y,
+                     float* __restrict__ partial, int M, int N, int K, int group,
+                     int k_per_split) {
+  using Sm = WgSmem<BITS, MT>;
+  constexpr int BN = Sm::BN, STAGES = Sm::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int m0 = blockIdx.x * Sm::BM, n0 = blockIdx.y * BN;
+  const int k_begin = PARTIAL ? blockIdx.z * k_per_split : 0;
+  const int k_end = PARTIAL ? min(K, k_begin + k_per_split) : K;
+  const int nk = (k_end - k_begin) / WG_BK;
+  const int srows = group >= WG_BK ? 1 : WG_BK / group;
+  const uint32_t tx_bytes = Sm::A_BYTES + Sm::Q_BYTES + srows * BN * 2;
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(base + Sm::bar_off + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(nk, STAGES - 2); ++t)
+      wg_issue<BITS, MT>(base, &tm_x, &tm_q, &tm_s, t, k_begin, m0, n0, group, tx_bytes);
+
+  float acc[MT][BN / 2];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[t][i] = 0.0f;
+
+  const int rot = (lane >> 1) & 3;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % STAGES;
+    const int bb = kt % WG_B_BUFS;
+    mbar_wait(base + Sm::bar_off + 8 * st, (uint32_t)(kt / STAGES) & 1u);
+    const uint8_t* sq = smem + st * Sm::STAGE + Sm::A_BYTES;
+    const __nv_bfloat16* ss =
+        reinterpret_cast<const __nv_bfloat16*>(smem + st * Sm::STAGE + Sm::A_BYTES + Sm::Q_BYTES);
+    uint8_t* bbuf = smem + Sm::b_off + bb * Sm::B_BYTES;
+    // warp w dequantizes rows 8w..8w+7 of the step (their scale row), lane
+    // the 4 columns 4 lane..4 lane+3
+    const int srow = group >= WG_BK ? 0 : (8 * warp) / group;
+    dequant_unit<BITS>(sq, ss + srow * BN, bbuf, warp, lane, rot);
+    // the B tile was written through the generic proxy; wgmma reads it
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    // every warpgroup is past step kt - 1's wait: step kt - 2's stage is free
+    if (tid == 0 && kt + STAGES - 2 < nk)
+      wg_issue<BITS, MT>(base, &tm_x, &tm_q, &tm_s, kt + STAGES - 2, k_begin, m0, n0, group,
+                         tx_bytes);
+    __syncwarp();  // warp 0 reconverges before the warpgroup-wide wgmma
+
+    // this warpgroup's MT 64-row tiles of x (8 KB each), all against B
+    const uint32_t a = base + st * Sm::STAGE + wg * MT * 64 * 128;
+    const uint32_t b = base + Sm::b_off + bb * Sm::B_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // a 16-deep slice is 32 bytes further along each 128-byte row
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+        wgmma_n128(acc[t], sw128_desc(a + t * 64 * 128 + 32 * kk), sw128_desc(b + 32 * kk));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+
+  // accumulator layout of m64nN: register 4j + 2h + e holds row
+  // 16 (warp % 4) + lane / 4 + 8h, column 8j + 2 (lane % 4) + e
+  const int col0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    const int row0 = m0 + (wg * MT + t) * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < M && col < N) {  // N % 16 == 0: col + 1 < N too
+          const long long off = (long long)row * N + col;
+          if constexpr (PARTIAL)
+            *reinterpret_cast<float2*>(partial + (long long)blockIdx.z * M * N + off) =
+                make_float2(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(y + off) =
+                __floats2bfloat162_rn(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(ptr);
+  }();
+  return fn;
+}
+
+// a row-major [outer, inner] tensor, boxes of [box_outer, box_inner]; out of
+// bounds reads are zero
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner,
+               uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+               CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what the wgmma route takes (kernel_route in ops/cuda/quantized_matmul.py)
+bool wgmma_takes(int M, int N, int K, int group) {
+  return M > 0 && K % WG_BK == 0 && N % 16 == 0 && group % 8 == 0 &&
+         (group % WG_BK == 0 || WG_BK % group == 0);
+}
+
+template <int BITS, int MT, bool PARTIAL>
+cudaError_t launch_wgmma_grid(const CUtensorMap& tx, const CUtensorMap& tq, const CUtensorMap& ts,
+                              void* y, float* work, int M, int N, int K, int group,
+                              int k_per_split, int splits, cudaStream_t stream) {
+  using Sm = WgSmem<BITS, MT>;
+  auto kernel = qmm_wgmma_kernel<BITS, MT, PARTIAL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + Sm::BM - 1) / Sm::BM, (N + Sm::BN - 1) / Sm::BN, splits);
+  kernel<<<grid, WG_THREADS, Sm::bytes, stream>>>(tx, tq, ts, static_cast<__nv_bfloat16*>(y),
+                                                   work, M, N, K, group, k_per_split);
+  return cudaGetLastError();
+}
+
+template <int BITS, int MT>
+cudaError_t launch_wgmma(const void* x, const void* q, const void* scale, void* y, float* work,
+                         int M, int N, int K, int group, int splits, cudaStream_t stream) {
+  if (!wgmma_takes(M, N, K, group)) return cudaErrorInvalidValue;
+  const int srows = group >= WG_BK ? 1 : WG_BK / group;
+  CUtensorMap tx, tq, ts;
+  if (!encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, WG_BK,
+                 WgSmem<BITS, MT>::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, BITS == 8 ? K : K / 2, N, WG_BN,
+                 BITS == 8 ? WG_BK : WG_BK / 2, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_2d(&ts, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, N, K / group, (uint64_t)N * 2,
+                 WG_BN, srows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  if (splits <= 1)
+    return launch_wgmma_grid<BITS, MT, false>(tx, tq, ts, y, nullptr, M, N, K, group, K, 1,
+                                              stream);
+  if (work == nullptr) return cudaErrorInvalidValue;
+  int k_per_split = (K + splits - 1) / splits;
+  k_per_split = (k_per_split + WG_BK - 1) / WG_BK * WG_BK;
+  splits = (K + k_per_split - 1) / k_per_split;
+  cudaError_t err = launch_wgmma_grid<BITS, MT, true>(tx, tq, ts, nullptr, work, M, N, K, group,
+                                                      k_per_split, splits, stream);
+  if (err != cudaSuccess) return err;
+  const int mn = M * N;
+  qmv_reduce_kernel<__nv_bfloat16><<<(mn + 255) / 256, 256, 0, stream>>>(
+      work, static_cast<__nv_bfloat16*>(y), mn, splits);
+  return cudaGetLastError();
+}
+
+enum Route { ROUTE_GEMV = 0, ROUTE_WMMA = 1, ROUTE_WGMMA = 2 };
+
 template <typename T, int BITS>
-cudaError_t launch(const void* x, const void* q, const void* scale, void* y, float* work, int M,
-                   int N, int K, int group, int splits, cudaStream_t stream) {
-  if (M <= 16) {
-    if (work == nullptr || splits < 1) return cudaErrorInvalidValue;
+cudaError_t launch(int route, int block_rows, const void* x, const void* q, const void* scale,
+                   void* y, float* work, int M, int N, int K, int group, int splits,
+                   cudaStream_t stream) {
+  if (route == ROUTE_GEMV) {
+    if (M > 16 || work == nullptr || splits < 1) return cudaErrorInvalidValue;
     if (M <= 1) return launch_qmv<T, BITS, 1>(x, q, scale, y, work, M, N, K, group, splits, stream);
     if (M <= 2) return launch_qmv<T, BITS, 2>(x, q, scale, y, work, M, N, K, group, splits, stream);
     if (M <= 4) return launch_qmv<T, BITS, 4>(x, q, scale, y, work, M, N, K, group, splits, stream);
     if (M <= 8) return launch_qmv<T, BITS, 8>(x, q, scale, y, work, M, N, K, group, splits, stream);
     return launch_qmv<T, BITS, 16>(x, q, scale, y, work, M, N, K, group, splits, stream);
   }
+  if (route == ROUTE_WGMMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (block_rows == 128)
+        return launch_wgmma<BITS, 1>(x, q, scale, y, work, M, N, K, group, splits, stream);
+      if (block_rows == 256)
+        return launch_wgmma<BITS, 2>(x, q, scale, y, work, M, N, K, group, splits, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (route != ROUTE_WMMA) return cudaErrorInvalidValue;
   // bf16 on the tensor cores: 128 x 128 tiles, 8 warps; fp16/fp32 FMA: 64 x 64, 4 warps
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_tile<T, BITS, 128, 128, 32, 256>(x, q, scale, y, work, M, N, K, group, splits,
@@ -408,11 +806,13 @@ cudaError_t launch(const void* x, const void* q, const void* scale, void* y, flo
 }
 
 template <typename T>
-cudaError_t launch_bits(int bits, const void* x, const void* q, const void* scale, void* y,
-                        float* work, int M, int N, int K, int group, int splits,
-                        cudaStream_t stream) {
-  if (bits == 8) return launch<T, 8>(x, q, scale, y, work, M, N, K, group, splits, stream);
-  if (bits == 4) return launch<T, 4>(x, q, scale, y, work, M, N, K, group, splits, stream);
+cudaError_t launch_bits(int bits, int route, int block_rows, const void* x, const void* q,
+                        const void* scale, void* y, float* work, int M, int N, int K, int group,
+                        int splits, cudaStream_t stream) {
+  if (bits == 8)
+    return launch<T, 8>(route, block_rows, x, q, scale, y, work, M, N, K, group, splits, stream);
+  if (bits == 4)
+    return launch<T, 4>(route, block_rows, x, q, scale, y, work, M, N, K, group, splits, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -420,23 +820,34 @@ cudaError_t launch_bits(int bits, const void* x, const void* q, const void* scal
 
 // dtype (of x, scale and y): 0 = float32, 1 = float16, 2 = bfloat16. bits 8:
 // q is int8 [K, N]; bits 4: q is uint8 [K/2, N] (K even). scale is [K/group, N].
-// Every tensor is contiguous. work is the caller's fp32 scratch of
-// splits * M * N for the split-k partials: needed for M <= 16 (the GEMV,
-// splits >= 1) and for splits > 1; else it may be null.
-// Returns a cudaError_t.
+// Every tensor is contiguous (and, for the wgmma route, 16-byte aligned).
+// route: 0 the GEMV (M <= 16), 1 the wmma/FMA tiled kernel, 2 the TMA +
+// wgmma kernel (bf16; K % 64 == 0, N % 16 == 0, group a multiple of 64 or
+// one of 8, 16, 32) with blocks of block_rows (128 or 256) rows of x; the
+// other routes ignore block_rows. work is the caller's fp32 scratch of
+// splits * M * N for the split-k partials: needed for the GEMV (splits >= 1)
+// and for splits > 1; else it may be null. Returns a cudaError_t.
 extern "C" int ds_quantized_matmul(const void* x, const void* q, const void* scale, void* y,
                                    void* work, int dtype, int bits, int M, int N, int K,
-                                   int group, int splits, void* stream) {
+                                   int group, int splits, int route, int block_rows,
+                                   void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || K % group != 0 || (bits == 4 && K % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_bits<float>(bits, x, q, scale, y, wk, M, N, K, group, splits, st); break;
-    case 1: err = launch_bits<__half>(bits, x, q, scale, y, wk, M, N, K, group, splits, st); break;
+    case 0:
+      err = launch_bits<float>(bits, route, block_rows, x, q, scale, y, wk, M, N, K, group,
+                               splits, st);
+      break;
+    case 1:
+      err = launch_bits<__half>(bits, route, block_rows, x, q, scale, y, wk, M, N, K, group,
+                                splits, st);
+      break;
     case 2:
-      err = launch_bits<__nv_bfloat16>(bits, x, q, scale, y, wk, M, N, K, group, splits, st);
+      err = launch_bits<__nv_bfloat16>(bits, route, block_rows, x, q, scale, y, wk, M, N, K,
+                                       group, splits, st);
       break;
     default: err = cudaErrorInvalidValue;
   }

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from . import LAUNCH_COUNTS
-from .flash_attention import _KERNEL_DTYPES, _UNIT_ROUNDOFF, _check_kernel_inputs, _on_cpu
+from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (the gate)
+                              _UNIT_ROUNDOFF, _check_kernel_inputs, _on_cpu)
 
 NEG_INF = -1e30
 
@@ -243,7 +244,8 @@ def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_l
     CPU tensors take ``block_sparse_attention_fwd_reference``. CUDA tensors
     launch the kernel on the current stream (no synchronisation) or raise
     on what it does not take: dtypes other than fp32/fp16/bf16, head_dim
-    outside {64, 128}, a block that is not a multiple of 16, lists on
+    outside ``_KERNEL_HEAD_DIMS`` (the flash kernels' set: 32, 64, 80, 96,
+    128, 256), a block that is not a multiple of 16, lists on
     another device, a non-contiguous last dim or rows not 16-byte aligned."""
     _check_shapes(q, k, v, lists, causal)
     if _on_cpu(q, k, v):

@@ -29,7 +29,8 @@ from . import LAUNCH_COUNTS
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_KERNEL_HEAD_DIMS = (64, 128)
+# every head_dim of the model registry's presets (each a multiple of 16)
+_KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 def _check_shapes(q, k, v, causal):
@@ -147,7 +148,8 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return
     ``block_size``; the kernel's tiles are fixed). CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise on what it
     does not take: dtypes other than fp32/fp16/bf16, head_dim outside
-    {64, 128}, a non-contiguous last dim or rows not 16-byte aligned."""
+    ``_KERNEL_HEAD_DIMS`` (32, 64, 80, 96, 128, 256), a non-contiguous last
+    dim or rows not 16-byte aligned."""
     _check_shapes(q, k, v, causal)
     if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,

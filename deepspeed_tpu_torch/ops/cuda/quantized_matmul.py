@@ -6,10 +6,16 @@ the hand-written CUDA kernel ``deepspeed_tpu_torch/csrc/quantized_matmul.cu``:
 ``x [m, k] @ dequant(q, scale) [k, n]`` with the weight read at 8 or 4 bits
 and dequantized inside the kernel.
 
-On a CUDA tensor the wrapper launches the kernel or raises, whatever m and
-whatever the shape: the kernel tiles m itself and masks ragged tails, so the
-TPU kernel's m <= 2048 and 128-lane tiling gates have no counterpart. On a
-CPU tensor it computes ``quantized_matmul_reference``, which the tests hold
+The source has three routes, and ``kernel_route`` picks one as a pure
+function of the shape: the split-k GEMV for m <= 16 (decode), the TMA +
+wgmma kernel for the bf16 prefill shapes it takes (k a multiple of 64, n of
+16, a group that 64 divides or that divides 64 and is a multiple of 8:
+every Llama-7B linear), and the wmma / FMA tiled kernel for every other
+m > 16 (fp16/fp32 x, ragged shapes, odd groups). On a CUDA tensor the
+wrapper launches the route's kernel or raises, whatever m and whatever the
+shape: the kernels tile m themselves and mask ragged tails, so the TPU
+kernel's m <= 2048 and 128-lane tiling gates have no counterpart. On a CPU
+tensor it computes ``quantized_matmul_reference``, which the tests hold
 against the TPU kernel in interpret mode and ``chip_smoke.py`` holds the
 CUDA kernel against on the card.
 """
@@ -84,8 +90,13 @@ def rounding_bound(x, q, scale, ref, *, bits):
 _GEMV_MAX_M = 16      # m at or below takes the kernel's split-k GEMV (csrc)
 _GEMV_COLS = 128      # columns per GEMV block
 _GEMV_ROWS = 128      # rows of a GEMV block's k chunk
-_TILES = {torch.bfloat16: 128, torch.float16: 64, torch.float32: 64}  # tiled kernel's m, n tile
-_TILE_SPLIT_ROWS = 256  # the least k range a split of the tiled kernel sweeps
+_TILES = {torch.bfloat16: 128, torch.float16: 64, torch.float32: 64}  # wmma kernel's m, n tile
+_TILE_SPLIT_ROWS = 256  # the least k range a split of a tiled kernel sweeps
+_WG_ROWS = (128, 256)  # the wgmma kernel's block rows (n: 128 columns)
+_WG_COLS = 128
+_WG_BK = 64           # the wgmma kernel's k step
+# the C entry point's route argument
+ROUTES = {"gemv": 0, "wmma": 1, "wgmma": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,18 +104,55 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kernel_splits(m, n, k, dtype, device):
+def kernel_route(m, n, k, group, dtype, bits):
+    """The kernel that computes a product of this shape: ``"gemv"`` for
+    m <= 16; ``"wgmma"`` (TMA + wgmma, the prefill kernel) for bf16 x with k
+    a multiple of its 64-deep step, n a multiple of 16 (the int8 rows stay
+    16-byte aligned for TMA) and a group that is a multiple of 64 or one of
+    8, 16, 32 (a step's rows share one scale row per 8); ``"wmma"`` for
+    every other shape. The same for both ``bits``: 64 even rows pack into
+    whole int4 bytes."""
+    del bits
+    if m <= _GEMV_MAX_M:
+        return "gemv"
+    if (dtype == torch.bfloat16 and k % _WG_BK == 0 and n % 16 == 0 and group % 8 == 0
+            and (group % _WG_BK == 0 or _WG_BK % group == 0)):
+        return "wgmma"
+    return "wmma"
+
+
+def _device_sms(device):
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def wgmma_block_rows(m, n, device):
+    """The wgmma kernel's rows of x per block on CUDA ``device``: 256 (each
+    warpgroup two 64-row tiles, the dequantized weight tile shared by twice
+    the rows) when those blocks fill three quarters of the SMs or more, else
+    128 (twice the blocks for a short prefill)."""
+    wide = math.ceil(m / _WG_ROWS[1]) * math.ceil(n / _WG_COLS)
+    return _WG_ROWS[1] if 4 * wide >= 3 * _device_sms(device) else _WG_ROWS[0]
+
+
+def kernel_splits(route, m, n, k, dtype, device):
     """The kernel's k splits on CUDA ``device``. The GEMV (m <= 16): enough
     (strip, split) blocks for about four per SM (each block's loads in
     flight cover only part of the memory latency), a split at least one
-    128-row chunk. The tiled kernel (128 x 128 tiles for bf16, 64 x 64
-    else): 1 when its output tiles give every SM two blocks (a long
-    prefill), else enough splits for that, each at least 256 rows deep."""
-    device = torch.device(device)
-    sms = _sm_count(torch.cuda.current_device() if device.index is None else device.index)
-    if m <= _GEMV_MAX_M:
+    128-row chunk. The wgmma kernel (one block an SM): 1 when its blocks
+    fill half the SMs, else enough splits to fill them all. The wmma kernel
+    (128 x 128 tiles for bf16, 64 x 64 else): 1 when its tiles give every
+    SM two blocks, else enough splits for that. A split of a tiled kernel is
+    at least 256 rows deep."""
+    sms = _device_sms(device)
+    if route == "gemv":
         want = math.ceil(4 * sms / math.ceil(n / _GEMV_COLS))
         return max(1, min(want, math.ceil(k / _GEMV_ROWS)))
+    if route == "wgmma":
+        tiles = math.ceil(m / wgmma_block_rows(m, n, device)) * math.ceil(n / _WG_COLS)
+        if 2 * tiles >= sms:
+            return 1
+        return max(1, min(math.ceil(sms / tiles), k // _TILE_SPLIT_ROWS))
     tiles = math.ceil(n / _TILES[dtype]) * math.ceil(m / _TILES[dtype])
     if tiles >= 2 * sms:
         return 1
@@ -126,7 +174,7 @@ def _check_kernel_inputs(x, q, scale):
                              f"{t.stride()}")
 
 
-def quantized_matmul(x, q, scale, *, bits):
+def quantized_matmul(x, q, scale, *, bits, route=None):
     """``x [m, k] @ dequant(q, scale) [k, n] -> [m, n]`` in x's dtype. For
     m <= 16, and for a few output tiles, the kernel splits k and adds fp32
     partials ([splits, m, n], allocated here) in a second kernel of the same
@@ -134,7 +182,9 @@ def quantized_matmul(x, q, scale, *, bits):
 
     ``q``: int8 [k, n] for bits 8, or the nibble-packed uint8 [k/2, n] of
     ``ops/quantizer.py pack_int4`` for bits 4; ``scale``: [groups, 1, n], the
-    ``quantize_per_channel`` layout, in x's dtype on the card. CPU tensors
+    ``quantize_per_channel`` layout, in x's dtype on the card. ``route``:
+    None takes ``kernel_route``; a name forces that route (to time one route
+    against another), and one that cannot take the shape raises. CPU tensors
     take the plain version; CUDA tensors launch the kernel on the current
     stream (no synchronisation) or raise on what it does not take."""
     _check_shapes(x, q, scale, bits)
@@ -145,12 +195,21 @@ def quantized_matmul(x, q, scale, *, bits):
     _check_kernel_inputs(x, q, scale)
     m, k = x.shape
     n = q.shape[1]
+    group = k // scale.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
-    splits = kernel_splits(m, n, k, x.dtype, x.device)
+    auto = kernel_route(m, n, k, group, x.dtype, bits)
+    route = auto if route is None else route
+    if route != auto and not (route == "wmma" and auto == "wgmma"):
+        raise ValueError(f"quantized_matmul: route {route!r} does not take m {m}, k {k}, n {n}, "
+                         f"group {group}, {x.dtype} (its route is {auto!r})")
+    if route == "wgmma" and x.data_ptr() % 16:
+        x = x.clone()  # TMA reads from 16-byte aligned addresses
+    splits = kernel_splits(route, m, n, k, x.dtype, x.device)
+    rows = wgmma_block_rows(m, n, x.device) if route == "wgmma" else 0
     work = None
-    if m <= _GEMV_MAX_M or splits > 1:
+    if route == "gemv" or splits > 1:
         work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     from ..op_builder import load_op
 
@@ -159,9 +218,11 @@ def quantized_matmul(x, q, scale, *, bits):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ds_quantized_matmul(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
                                       None if work is None else work.data_ptr(),
-                                      _KERNEL_DTYPES[x.dtype], bits, m, n, k,
-                                      k // scale.shape[0], splits, stream)
+                                      _KERNEL_DTYPES[x.dtype], bits, m, n, k, group, splits,
+                                      ROUTES[route], rows, stream)
     if err:
-        raise RuntimeError(f"quantized_matmul launch failed: cudaError_t {err}")
+        raise RuntimeError(f"quantized_matmul launch failed ({route} route): cudaError_t {err}")
     LAUNCH_COUNTS[f"quantized_matmul_int{bits}"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS[f"quantized_matmul_int{bits}_wgmma"] += 1
     return y

@@ -175,7 +175,7 @@ class QuantizedMatmulBuilder(CUDAOpBuilder):
     def bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.ds_quantized_matmul
-        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.argtypes = [p] * 5 + [i] * 9 + [p]
         fn.restype = ctypes.c_int
 
 

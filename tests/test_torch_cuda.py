@@ -59,7 +59,15 @@ def _qkv(b, s_q, s_kv, h, kvh, d, dtype, device, seed=0):
     (2, 200, 200, 4, 4, 128, True),    # ragged tail, several tiles
     (1, 77, 300, 4, 2, 64, True),      # s_q < s_kv, GQA
     (1, 130, 90, 2, 1, 128, False),    # non-causal, s_q > s_kv, MQA
-], ids=["one-tile", "ragged", "sq<skv-gqa", "noncausal-mqa"])
+    # the registry's other widths: s_q < s_kv, GQA, ragged (d 256 at fp32:
+    # 32-row kv tiles); and one non-causal MQA case at a width no 32 divides
+    (1, 77, 200, 4, 2, 32, True),
+    (1, 77, 200, 4, 2, 80, True),
+    (1, 77, 200, 4, 2, 96, True),
+    (1, 77, 200, 4, 2, 256, True),
+    (1, 130, 90, 2, 1, 80, False),
+], ids=["one-tile", "ragged", "sq<skv-gqa", "noncausal-mqa", "d32", "d80", "d96", "d256",
+        "d80-noncausal-mqa"])
 def test_kernel_matches_plain(cuda, dtype, shape):
     b, s_q, s_kv, h, kvh, d, causal = shape
     q, k, v = _qkv(b, s_q, s_kv, h, kvh, d, dtype, cuda)
@@ -80,7 +88,7 @@ def test_kernel_reads_strided_views(cuda):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _qkv(1, 64, 64, 2, 2, 32, torch.bfloat16, cuda)
+    q, k, v = _qkv(1, 64, 64, 2, 2, 48, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(q, k, v)
     q, k, v = _qkv(1, 128, 64, 2, 2, 64, torch.bfloat16, cuda)
@@ -203,6 +211,17 @@ def test_forward_lse_matches_plain(cuda, dtype):
     _assert_matches_plain(out, q, k, v, True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [32, 80, 96, 256])
+def test_forward_lse_matches_plain_at_every_head_dim(cuda, dtype, d):
+    """The lse at the registry's other widths, as above."""
+    q, k, v = _qkv(1, 150, 200, 4, 2, d, dtype, cuda)
+    out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    _, ref_lse = flash_attention_reference(q, k, v, causal=True, return_lse=True)
+    assert ((lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
+    _assert_matches_plain(out, q, k, v, True)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
                          ids=["bf16", "fp16", "fp32"])
 @pytest.mark.parametrize("shape", [
@@ -210,7 +229,15 @@ def test_forward_lse_matches_plain(cuda, dtype):
     (2, 200, 200, 4, 4, 128, True),    # ragged tail, several tiles
     (1, 77, 300, 4, 2, 64, True),      # s_q < s_kv, GQA
     (1, 130, 90, 4, 1, 128, False),    # non-causal, s_q > s_kv, MQA
-], ids=["one-tile", "ragged", "sq<skv-gqa", "noncausal-mqa"])
+    # the registry's other widths (d 256: 32-row kv tiles, and 32-row q
+    # tiles at fp32), s_q < s_kv, GQA, ragged
+    (1, 150, 200, 4, 2, 32, True),
+    (1, 150, 200, 4, 2, 80, True),
+    (1, 150, 200, 4, 2, 96, True),
+    (1, 150, 200, 4, 2, 256, True),
+    (1, 130, 90, 4, 1, 96, False),
+], ids=["one-tile", "ragged", "sq<skv-gqa", "noncausal-mqa", "d32", "d80", "d96", "d256",
+        "d96-noncausal-mqa"])
 def test_bwd_kernel_matches_plain(cuda, dtype, shape):
     """bf16/fp16: within 1e-5 + ``bwd_rounding_bound`` (the kernel rounds P
     and dS to the input type, both sides round the outputs). fp32:
@@ -244,7 +271,7 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), do)
     with pytest.raises(ValueError, match="does not match"):
         flash_attention_bwd(q, k, v, o, lse, do.float())
-    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 32, True, torch.bfloat16, cuda)
+    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 48, True, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(q, k, v, o, lse, do)
 
@@ -462,6 +489,88 @@ def test_qmm_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("m", [17, 64, 2048, 4096])
+def test_qmm_wgmma_route_matches_plain(cuda, m, group, bits):
+    """The TMA + wgmma route at Llama-7B's gate/up projection (k 4096, n
+    11008) from the least prefill m to beyond the longest: within
+    ``rounding_bound``, one launch counted under the route's key too."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import kernel_route, quantized_matmul
+
+    x, q, scale = _qmm_inputs(m, 4096, 11008, group, bits, torch.bfloat16, cuda)
+    assert kernel_route(m, 11008, 4096, group, torch.bfloat16, bits) == "wgmma"
+    before = dict(LAUNCH_COUNTS)
+    y = quantized_matmul(x, q, scale, bits=bits)
+    torch.cuda.synchronize()
+    for name in (f"quantized_matmul_int{bits}", f"quantized_matmul_int{bits}_wgmma"):
+        assert LAUNCH_COUNTS[name] == before[name] + 1
+    _assert_qmm_matches_plain(y, x, q, scale, bits)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((16, 4096, 4096, 64), torch.bfloat16, "gemv"),     # m: the decode GEMV's largest
+    ((17, 4096, 4096, 64), torch.bfloat16, "wgmma"),    # and one row more
+    ((200, 4096, 4104, 64), torch.bfloat16, "wmma"),    # n: 8 past a multiple of 16
+    ((200, 4096, 4112, 64), torch.bfloat16, "wgmma"),   # n: a multiple of 16
+    ((200, 4128, 1024, 32), torch.bfloat16, "wmma"),    # k: 32 past a multiple of 64
+    ((200, 4160, 1024, 32), torch.bfloat16, "wgmma"),   # k: a multiple of 64
+    ((200, 4032, 1024, 96), torch.bfloat16, "wmma"),    # a group neither side of 64 divides
+    ((200, 4096, 1024, 8), torch.bfloat16, "wgmma"),    # the least group it takes
+    ((200, 4096, 1024, 64), torch.float16, "wmma"),     # fp16 x: fp32 FMA
+], ids=["gemv-m16", "wgmma-m17", "wmma-n4104", "wgmma-n4112", "wmma-k4128", "wgmma-k4160",
+        "wmma-g96", "wgmma-g8", "wmma-fp16"])
+def test_qmm_route_boundary(cuda, shape, dtype, route, bits):
+    """Shapes on each side of the wgmma route's boundary take the route
+    ``kernel_route`` names (the wgmma key counts only its launches) and
+    match the plain version."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import kernel_route, quantized_matmul
+
+    m, k, n, group = shape
+    assert kernel_route(m, n, k, group, dtype, bits) == route
+    x, q, scale = _qmm_inputs(m, k, n, group, bits, dtype, cuda)
+    key = f"quantized_matmul_int{bits}_wgmma"
+    before = LAUNCH_COUNTS[key]
+    y = quantized_matmul(x, q, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS[key] == before + (route == "wgmma")
+    _assert_qmm_matches_plain(y, x, q, scale, bits)
+
+
+def test_qmm_wgmma_route_takes_an_unaligned_x(cuda):
+    """TMA reads from 16-byte aligned addresses: an x whose storage starts 2
+    bytes in is copied once by the wrapper, and the product is the plain
+    version's."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+
+    x, q, scale = _qmm_inputs(100, 4096, 1024, 64, 8, torch.bfloat16, cuda)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    before = LAUNCH_COUNTS["quantized_matmul_int8_wgmma"]
+    y = quantized_matmul(shifted, q, scale, bits=8)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["quantized_matmul_int8_wgmma"] == before + 1
+    _assert_qmm_matches_plain(y, x, q, scale, 8)
+
+
+def test_qmm_forced_routes(cuda):
+    """The old tiled route still computes a wgmma shape (``chip_smoke.py``
+    times the two side by side); a route that cannot take a shape raises."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+
+    x, q, scale = _qmm_inputs(300, 4096, 1024, 64, 8, torch.bfloat16, cuda)
+    before = LAUNCH_COUNTS["quantized_matmul_int8_wgmma"]
+    y = quantized_matmul(x, q, scale, bits=8, route="wmma")
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["quantized_matmul_int8_wgmma"] == before
+    _assert_qmm_matches_plain(y, x, q, scale, 8)
+    x, q, scale = _qmm_inputs(300, 4096, 1000, 64, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="route"):
+        quantized_matmul(x, q, scale, bits=8, route="wgmma")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 def test_quantized_linear_launches_at_any_m(cuda, bits):
     """linear_apply on a quantized linear reaches the kernel at a prefill m
     above the TPU kernel's 2048 gate, with the bias added after."""
@@ -566,8 +675,14 @@ def _sparse_case(pattern, block, causal, s_q, s_kv, b, h, d, dtype, device, seed
     ("bslongformer", 32, True, 256, 256, 2, 2, 64),  # 32-row tiles
     ("variable", 16, False, 128, 128, 1, 2, 128),    # 16-row tiles
     ("fixed", 48, True, 192, 384, 1, 2, 64),         # s_q < s_kv, a block of 48
+    # the registry's other widths (d 256: 32-row tiles, two per block)
+    ("fixed", 64, True, 256, 256, 1, 2, 32),
+    ("fixed", 64, True, 256, 256, 1, 2, 80),
+    ("bigbird", 64, False, 256, 256, 1, 2, 96),
+    ("fixed", 64, True, 256, 256, 1, 2, 256),
 ], ids=["fixed128", "bigbird64-noncausal", "longformer32", "variable16-noncausal",
-        "sq<skv-block48"])
+        "sq<skv-block48", "fixed64-d32", "fixed64-d80", "bigbird64-noncausal-d96",
+        "fixed64-d256"])
 def test_block_sparse_kernels_match_plain(cuda, dtype, case):
     """Forward (o and lse) and backward against the plain versions: 16-bit
     within 1e-5 + ``rounding_bound`` / ``bwd_rounding_bound`` (the kernels
@@ -639,7 +754,7 @@ def test_block_sparse_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="lists are on"):
         block_sparse_attention_fwd(q, k, v, SparseLayout(lists.layout, 64, "cpu"))
     with pytest.raises(ValueError, match="head_dim"):
-        block_sparse_attention_fwd(q[..., :32], k[..., :32], v[..., :32], lists)
+        block_sparse_attention_fwd(q[..., :48], k[..., :48], v[..., :48], lists)
     with pytest.raises(ValueError, match="one head count"):
         block_sparse_attention_fwd(q, k[:, :, :1], v[:, :, :1], lists)
 

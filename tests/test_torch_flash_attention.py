@@ -2,6 +2,9 @@
 kernel (``pallas_flash_attention`` in interpret mode, as the JAX package's
 own tests run it on the CPU), and the port's dispatch on CPU tensors."""
 
+import ast
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +12,10 @@ import torch
 
 from deepspeed_tpu.ops.flash_attention import _chunked_attention as jax_chunked
 from deepspeed_tpu.ops.pallas.flash_attention import pallas_flash_attention
+from deepspeed_tpu_torch.models.registry import MODEL_CONFIGS
 from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as cuda_bsa
+from deepspeed_tpu_torch.ops.cuda import flash_attention as cuda_flash
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
                                                           flash_attention_reference,
                                                           rounding_bound)
@@ -29,16 +35,20 @@ def _qkv(b, s_q, s_kv, h, d, seed, kvh=None):
 
 
 # block_kv == s_kv runs the single-kv-tile TPU kernel (_fwd_kernel_single);
-# smaller block_kv the kv-tile loop (_fwd_kernel).
+# smaller block_kv the kv-tile loop (_fwd_kernel). head_dim 32 throughout,
+# and the registry's widths no other case has (80, 96, 256) over kv tiles.
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s_q,s_kv,bq,bkv", [
-    (128, 128, 64, 128),   # single kv tile
-    (128, 128, 32, 32),    # multi kv tile
-    (64, 128, 32, 64),     # s_q < s_kv (causal aligned to the kv end)
-], ids=["single-tile", "multi-tile", "sq<skv"])
-def test_plain_matches_pallas_interpret(causal, s_q, s_kv, bq, bkv):
+@pytest.mark.parametrize("s_q,s_kv,bq,bkv,d", [
+    (128, 128, 64, 128, 32),   # single kv tile
+    (128, 128, 32, 32, 32),    # multi kv tile
+    (64, 128, 32, 64, 32),     # s_q < s_kv (causal aligned to the kv end)
+    (128, 128, 64, 64, 80),
+    (128, 128, 64, 64, 96),
+    (128, 128, 64, 64, 256),
+], ids=["single-tile", "multi-tile", "sq<skv", "d80", "d96", "d256"])
+def test_plain_matches_pallas_interpret(causal, s_q, s_kv, bq, bkv, d):
     """rtol/atol 2e-5, the tolerance of tests/unit/test_flash_attention.py."""
-    q, k, v = _qkv(1, s_q, s_kv, 2, 32, seed=7)
+    q, k, v = _qkv(1, s_q, s_kv, 2, d, seed=7)
     ref = np.asarray(pallas_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                             causal=causal, block_q=bq, block_kv=bkv,
                                             interpret=True))
@@ -112,3 +122,36 @@ def test_rounding_bound_covers_the_kernels_rounding(dtype):
     late = ref.float()[:, 64:]
     assert (limit[:, 64:] < 0.01 * late.abs().max()).any()
     assert rounding_bound(q.float(), k.float(), v.float(), ref.float()) is None
+
+
+def _registry_head_dims():
+    """{(family, size): head_dim} of every preset the port's registry builds:
+    each family's sizes are the keys of its ``presets`` table, read from the
+    registry's source; presets whose features are not ported raise and are
+    left out."""
+    dims = {}
+    for family, make in MODEL_CONFIGS.items():
+        tree = ast.parse(inspect.getsource(make))
+        sizes = [key.value for node in ast.walk(tree) if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "presets" for key in node.value.keys]
+        assert sizes, family
+        for size in sizes:
+            try:
+                cfg = make(size)
+            except NotImplementedError:
+                continue
+            dims[(family, size)] = cfg.head_dim
+    return dims
+
+
+def test_every_preset_head_dim_is_a_kernel_width():
+    """The flash kernels (forward and backward) and the block-sparse kernels
+    take the head_dim of every preset the registry builds (the sets are the
+    wrappers' own gates): the card serves and trains every one."""
+    dims = _registry_head_dims()
+    assert {("opt", "2.7b"), ("gpt_neox", "20b"), ("gptj", "6b"), ("llama", "tiny")} <= set(dims)
+    for name, gate in (("flash", cuda_flash._KERNEL_HEAD_DIMS),
+                       ("block-sparse", cuda_bsa._KERNEL_HEAD_DIMS)):
+        missing = {k: d for k, d in dims.items() if d not in gate}
+        assert not missing, f"{name} kernels refuse {missing}"
+        assert all(d % 16 == 0 for d in gate)  # wmma's fragment depth

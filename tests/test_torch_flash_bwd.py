@@ -55,14 +55,19 @@ def _port_grads(q, k, v, do, causal, block_size=512):
 # (bq, bkv) = (64, s_kv) runs the single-tile TPU kernels (_dq_kernel_single,
 # _dkv_kernel_single with one q block when bq = s_q); smaller tiles the
 # tile loops (_dq_kernel, _dkv_kernel).
+# head_dim 32 throughout, and the registry's widths no other case has (80,
+# 96, 256) over q and kv tiles
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s_q,s_kv,bq,bkv", [
-    (128, 128, 128, 128),  # single q and kv tile
-    (128, 128, 32, 32),    # several q and kv tiles
-    (64, 128, 32, 64),     # s_q < s_kv (causal aligned to the kv end)
-], ids=["single-tile", "multi-tile", "sq<skv"])
-def test_plain_bwd_matches_pallas_interpret(causal, s_q, s_kv, bq, bkv):
-    q, k, v, do = _inputs(1, s_q, s_kv, 2, 2, 32, seed=11)
+@pytest.mark.parametrize("s_q,s_kv,bq,bkv,d", [
+    (128, 128, 128, 128, 32),  # single q and kv tile
+    (128, 128, 32, 32, 32),    # several q and kv tiles
+    (64, 128, 32, 64, 32),     # s_q < s_kv (causal aligned to the kv end)
+    (128, 128, 64, 64, 80),
+    (128, 128, 64, 64, 96),
+    (128, 128, 64, 64, 256),
+], ids=["single-tile", "multi-tile", "sq<skv", "d80", "d96", "d256"])
+def test_plain_bwd_matches_pallas_interpret(causal, s_q, s_kv, bq, bkv, d):
+    q, k, v, do = _inputs(1, s_q, s_kv, 2, 2, d, seed=11)
     ref = _jax_grads(q, k, v, do, causal, bq, bkv)
     got = _port_grads(q, k, v, do, causal, block_size=32)
     for name, g, r in zip(("out", "dq", "dk", "dv"), got, ref):

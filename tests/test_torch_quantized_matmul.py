@@ -85,6 +85,36 @@ def test_plain_matches_jax_kernel_interpret(bits, dtype):
         assert (np.abs(got - ref) <= limit).all(), np.abs(got - ref).max()
 
 
+def test_kernel_route_takes_every_prefill_linear_to_wgmma(monkeypatch):
+    """``kernel_route`` and ``kernel_splits`` are pure functions of the shape
+    (the SM count aside, pinned here to the H100's 132): every Llama-7B
+    linear at every token count m > 16 that ``chip_smoke.py``'s quantized
+    serving phase runs takes the TMA + wgmma route, in int8 and int4; the
+    decode batches take the GEMV; the ragged case and fp16/fp32 x take the
+    wmma route; a long prefill takes 256-row blocks and does not split k, a
+    short one takes 128-row blocks and splits k when they are few."""
+    import chip_smoke
+
+    monkeypatch.setattr(tqmm, "_sm_count", lambda index: 132)
+    ms = chip_smoke.qmm_main_ms()
+    assert any(m <= 16 for m in ms) and any(m > 16 for m in ms)
+    for bits in (8, 4):
+        for k, n in chip_smoke.LLAMA_LINEARS:
+            for m in ms:
+                want = "wgmma" if m > 16 else "gemv"
+                assert tqmm.kernel_route(m, n, k, 64, torch.bfloat16, bits) == want, (m, k, n)
+        assert tqmm.kernel_route(37, 4000, 4094, 23, torch.bfloat16, bits) == "wmma"
+        for dtype in (torch.float16, torch.float32):
+            assert tqmm.kernel_route(2048, 11008, 4096, 64, dtype, bits) == "wmma"
+    rows = lambda m, n: tqmm.wgmma_block_rows(m, n, "cuda:0")
+    assert rows(2048, 11008) == rows(1024, 4096) == 256   # 344 and 128 blocks of 256 rows
+    assert rows(512, 4096) == rows(64, 11008) == 128      # 64 and 86: under 3/4 of 132
+    splits = lambda m, n, k: tqmm.kernel_splits("wgmma", m, n, k, torch.bfloat16, "cuda:0")
+    assert splits(2048, 11008, 4096) == splits(64, 11008, 4096) == 1
+    assert splits(64, 4096, 4096) == 5              # 32 blocks: 5 splits reach 132
+    assert splits(64, 4096, 4096) == splits(64, 4096, 4096)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("shape", [(3, 70, 50, 7), (2100, 32, 16, 16)],
                          ids=["ragged-odd-group", "m-over-2048"])

@@ -86,14 +86,20 @@ def test_layouts_and_active_lists_match_jax(name, causal, s):
     assert (attn.lists.max_a, attn.lists.max_aq) == (ref._max_a, ref._max_aq)
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
-@pytest.mark.parametrize("name", sorted(PATTERNS))
-def test_plain_forward_matches_jax_interpret(name, causal):
+# every pattern causal and not at head_dim 16; the fixed pattern, causal, at
+# the registry's widths no other case has (80, 96, 256). Ids as pattern-causal.
+_FWD_CASES = [pytest.param(name, causal, 16, id=f"{name}-{'causal' if causal else 'noncausal'}")
+              for name in sorted(PATTERNS) for causal in (True, False)]
+_FWD_CASES += [pytest.param("fixed", True, d, id=f"fixed-causal-d{d}") for d in (80, 96, 256)]
+
+
+@pytest.mark.parametrize("name,causal,d", _FWD_CASES)
+def test_plain_forward_matches_jax_interpret(name, causal, d):
     """The plain forward (o and the per-row lse) against the Pallas kernel
     in interpret mode: rtol/atol 2e-5 (fp32; the sums run in another
     order)."""
     jcfg, pcfg = _configs(name)
-    q, k, v = _qkv()
+    q, k, v = _qkv(d=d)
     ref = JSA.BlockSparseAttention(jcfg, SEQ, causal=causal, interpret=True)
     ref_o, ref_lse = ref._forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import block_sparse_attention_fwd
