@@ -11,7 +11,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      paths' shapes and a few more, with its time, the plain version's time,
      the least time the card could take (the bound) and one PyTorch library
      call computing the same function as a yardstick (never used by the port);
-     the quantized matmul (int8, int4) at Llama-7B's linears for every token
+     the flash forward and backward at the main paths' shapes on their TMA +
+     wgmma route (bf16 at head_dim 128 and 64), each case also held and
+     timed through the old wmma route in turns (``_route="wmma"``); the
+     quantized matmul (int8, int4) at Llama-7B's linears for every token
      count phase 7 runs (a TMA + wgmma route case also through the old wmma
      route, in turns), and the paged decode on an int8 pool; the attention
      kernels (flash forward with lse, flash backward, block-sparse forward
@@ -27,7 +30,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      against gather on the card and on the CPU);
   4. the generate path: ``init_inference`` on full Llama-7B (32 layers, bf16,
      random weights from a seed) answering requests through ``generate()``,
-     with every kernel's launch count read around it;
+     with every kernel's launch count read around it (phases 4-7: every
+     flash launch on the wgmma route);
   5. the serving path: the same engine's ``serve()`` (8 slots, a paged KV
      pool of 2048-token windows, the ``fused`` decode backend) answering 16
      staggered requests on the wall clock, twice, with the launch counts
@@ -147,6 +151,13 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def route_turns(kernel, old, iters):
+    """The kernel's time and the old route's, in turns (old, new, new, old),
+    each the mean of its two turns: one card, one call, drift cancelled."""
+    t = [time_ms(f, iters) for f in (old, kernel, kernel, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
 def attention_flops(b, s_q, s_kv, h, d, causal):
     """Operations the attention forward needs: 4 * b * h * d per allowed
     (query, key) pair (two products of d multiply-adds each)."""
@@ -197,7 +208,8 @@ def decode_cursors():
 
 
 def phase_kernels(torch, F, main_shapes):
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import (flash_attention_fwd,
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route,
+                                                              flash_attention_fwd,
                                                               flash_attention_reference,
                                                               rounding_bound)
 
@@ -248,7 +260,21 @@ def phase_kernels(torch, F, main_shapes):
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
             enable_gqa=kvh != h)
-        kernel_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal, scale=scale), 20)
+        route = attention_route(dtype, d)
+        kernel = lambda: flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        old_route_ms = None
+        if route == "wgmma":
+            # the wmma kernel at the same shape: it holds the plain version too
+            old_out = flash_attention_fwd(q, k, v, causal=causal, scale=scale, _route="wmma")
+            torch.cuda.synchronize()
+            check_limit(f"flash kernel {name} {dtype} (wmma route)",
+                        (old_out.float() - ref.float()).abs(), limit, tol)
+            del old_out
+            kernel_ms, old_route_ms = route_turns(
+                kernel, lambda: flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                                    _route="wmma"), 20)
+        else:
+            kernel_ms = time_ms(kernel, 20)
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=causal,
                                                              scale=scale), 5)
         library_ms = time_ms(lib, 20)
@@ -263,13 +289,15 @@ def phase_kernels(torch, F, main_shapes):
                  kv_heads=kvh, d=d, causal=causal, main_path=name.startswith("main-"),
                  max_abs_err=err, tolerance=tol, limit_use=limit_use,
                  late_rows_max_abs_err=late_err, late_rows_mean_abs_plain=late_mean_abs,
-                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 kernel_route=route, ms=kernel_ms, old_route_ms=old_route_ms,
+                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                  bound_by="operations" if t_ops >= t_bytes else "bytes", flops=flops,
                  bytes=n_bytes, tflops=flops / kernel_ms / 1e9)
+        was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
         log(f"  flash {name:14s} {r['dtype']:8s} err {err:.2e} ({limit_use:.2f} of the limit; "
             f"rows>=64 err {late_err:.2e} at mean |plain| "
-            f"{late_mean_abs:.3f})  kernel "
-            f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound "
+            f"{late_mean_abs:.3f})  {route} "
+            f"{kernel_ms:.4f} ms{was}  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound "
             f"{bound_ms:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
         results.append(r)
         del q, k, v, out, ref, diff, limit
@@ -841,7 +869,8 @@ def phase_train_kernels(torch, F):
     from deepspeed_tpu_torch.ops.cuda.cross_entropy import (accumulation_bound,
                                                             fused_ce_forward,
                                                             fused_ce_forward_reference)
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import (bwd_rounding_bound,
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route,
+                                                              bwd_rounding_bound,
                                                               flash_attention_bwd,
                                                               flash_attention_bwd_reference,
                                                               flash_attention_fwd,
@@ -867,7 +896,23 @@ def phase_train_kernels(torch, F):
         lse_use = check_limit(f"flash lse train {dtype}", (lse - ref_lse).abs(),
                               1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        kernel_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True), 20)
+        route = attention_route(dtype, d)
+        kernel = lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        old_route_ms = None
+        if route == "wgmma":
+            old_o, old_lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True,
+                                                 _route="wmma")
+            torch.cuda.synchronize()
+            check_limit(f"flash fwd train {dtype} (wmma route)", (old_o.float() - ref.float()).abs(),
+                        limit, tol)
+            check_limit(f"flash lse train {dtype} (wmma route)", (old_lse - ref_lse).abs(),
+                        1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+            del old_o, old_lse
+            kernel_ms, old_route_ms = route_turns(
+                kernel, lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True,
+                                                    _route="wmma"), 20)
+        else:
+            kernel_ms = time_ms(kernel, 20)
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, causal=True,
                                                              return_lse=True), 5)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
@@ -879,13 +924,15 @@ def phase_train_kernels(torch, F):
         r = dict(case="train", dtype=str(dtype).split(".")[1], b=b, s=s, h=h, kv_heads=h, d=d,
                  causal=True, max_abs_err=(o.float() - ref.float()).abs().max().item(),
                  lse_max_abs_err=(lse - ref_lse).abs().max().item(), tolerance=tol,
-                 limit_use=use, lse_limit_use=lse_use, ms=kernel_ms, plain_ms=plain_ms,
+                 limit_use=use, lse_limit_use=lse_use, kernel_route=route, ms=kernel_ms,
+                 old_route_ms=old_route_ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bound_ms,
                  bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
                  flops=flops, bytes=n_bytes)
+        was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
         log(f"  flash fwd+lse train {r['dtype']:8s} err {r['max_abs_err']:.2e} ({use:.2f} of the "
-            f"limit), lse err {r['lse_max_abs_err']:.2e} ({lse_use:.2f})  kernel {kernel_ms:.4f} "
-            f"ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"limit), lse err {r['lse_max_abs_err']:.2e} ({lse_use:.2f})  {route} {kernel_ms:.4f} "
+            f"ms{was}  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
             f"({r['bound_by']})")
         out["flash_fwd_lse"].append(r)
         del q, k, v, o, lse, ref, ref_lse, limit
@@ -902,8 +949,12 @@ def phase_train_kernels(torch, F):
         o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
         do = rnd(bb, s_q, hq, d).to(dtype)
         args = (q, k, v, o, lse, do)
+        route = attention_route(dtype, d)
         grads = flash_attention_bwd(*args, causal=causal)
         refs = flash_attention_bwd_reference(*args, causal=causal)
+        # the wmma kernels at the same shape hold the plain version too
+        old_grads = (flash_attention_bwd(*args, causal=causal, _route="wmma")
+                     if route == "wgmma" else None)
         torch.cuda.synchronize()
         bounds = bwd_rounding_bound(*args, refs, causal=causal)
         errs, uses = {}, {}
@@ -915,7 +966,10 @@ def phase_train_kernels(torch, F):
                 tol, limit = f"{ATOL_16:g} + bwd rounding bound", ATOL_16 + bounds[i]
             uses[gname] = check_limit(f"flash bwd {name} {dtype} {gname}", diff, limit, tol)
             errs[gname] = diff.max().item()
-        del bounds, limit, diff
+            if old_grads is not None:
+                check_limit(f"flash bwd {name} {dtype} {gname} (wmma route)",
+                            (old_grads[i].float() - refs[i].float()).abs(), limit, tol)
+        del bounds, limit, diff, old_grads
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         mask = None
         if causal and s_q != s_kv:
@@ -925,7 +979,13 @@ def phase_train_kernels(torch, F):
                                               is_causal=causal and mask is None,
                                               enable_gqa=kvh != hq)
         gt = do.transpose(1, 2)
-        kernel_ms = time_ms(lambda: flash_attention_bwd(*args, causal=causal), 20)
+        kernel = lambda: flash_attention_bwd(*args, causal=causal)
+        old_route_ms = None
+        if route == "wgmma":
+            kernel_ms, old_route_ms = route_turns(
+                kernel, lambda: flash_attention_bwd(*args, causal=causal, _route="wmma"), 20)
+        else:
+            kernel_ms = time_ms(kernel, 20)
         plain_ms = time_ms(lambda: flash_attention_bwd_reference(*args, causal=causal), 3)
         library_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt,
                                                          retain_graph=True), 20)
@@ -939,13 +999,15 @@ def phase_train_kernels(torch, F):
         r = dict(case=name, dtype=str(dtype).split(".")[1], b=bb, s_q=s_q, s_kv=s_kv, h=hq,
                  kv_heads=kvh, d=d, causal=causal, max_abs_err=max(errs.values()),
                  max_abs_err_by_grad=errs, limit_use=max(uses.values()),
-                 limit_use_by_grad=uses, tolerance=tol, ms=kernel_ms, plain_ms=plain_ms,
+                 limit_use_by_grad=uses, tolerance=tol, kernel_route=route, ms=kernel_ms,
+                 old_route_ms=old_route_ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bound_ms,
                  bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
                  flops=flops, bytes=n_bytes, tflops=flops / kernel_ms / 1e9)
+        was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
         log(f"  flash bwd {name:14s} {r['dtype']:8s} err dq/dk/dv {errs['dq']:.2e}/"
-            f"{errs['dk']:.2e}/{errs['dv']:.2e} ({r['limit_use']:.2f} of the limit)  kernel "
-            f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa bwd {library_ms:.4f} ms  bound "
+            f"{errs['dk']:.2e}/{errs['dv']:.2e} ({r['limit_use']:.2f} of the limit)  {route} "
+            f"{kernel_ms:.4f} ms{was}  plain {plain_ms:.4f} ms  sdpa bwd {library_ms:.4f} ms  bound "
             f"{bound_ms:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
         out["flash_bwd"].append(r)
         del q, k, v, o, lse, do, args, grads, refs, qt, kt, vt, sdpa, gt
@@ -1025,7 +1087,8 @@ def phase_width_kernels(torch, F):
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         bwd_rounding_bound as bs_bwd_bound)
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import rounding_bound as bs_bound
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import (bwd_rounding_bound,
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route,
+                                                              bwd_rounding_bound,
                                                               flash_attention_bwd,
                                                               flash_attention_bwd_reference,
                                                               flash_attention_fwd,
@@ -1086,6 +1149,7 @@ def phase_width_kernels(torch, F):
                 mask = sdpa_mask(s_q, s_kv) if s_q != s_kv else None
                 r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
                          s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
+                         kernel_route=attention_route(dtype, d),
                          max_abs_err=diff.max().item(), limit_use=use,
                          lse_max_abs_err=(lse - ref_lse).abs().max().item(),
                          lse_limit_use=lse_use, tolerance=tol)
@@ -1130,6 +1194,7 @@ def phase_width_kernels(torch, F):
                 gt = do.transpose(1, 2)
                 r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
                          s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
+                         kernel_route=attention_route(dtype, d),
                          max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
                          limit_use=max(uses.values()), limit_use_by_grad=uses, tolerance=tol)
                 record("flash_bwd", r, attention_flops(b, s_q, s_kv, hq, d, causal) // 4 * 10,
@@ -1606,7 +1671,9 @@ def phase_training(torch, checked, sparse=False):
         expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
                     "fused_ce_forward": 1, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
     else:
-        expected = {"flash_attention_fwd": L, "flash_attention_bwd": L, "fused_ce_forward": 1}
+        # every flash launch of the step on the TMA + wgmma route
+        expected = {"flash_attention_fwd": L, "flash_attention_bwd": L, "fused_ce_forward": 1,
+                    "flash_attention_fwd_wgmma": L, "flash_attention_bwd_wgmma": L}
     reset_launch_counts()
     losses, step_ms = [], []
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -1760,9 +1827,8 @@ def phase_qmm_kernels(torch, main_ms):
             route = kernel_route(m, n, k, group, dtype, bits)
             old_route_ms = None
             if route == "wgmma":
-                old = lambda: quantized_matmul(x, q, scale, bits=bits, route="wmma")
-                turns = [time_ms(f, 20) for f in (old, kern, kern, old)]
-                kernel_ms, old_route_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                kernel_ms, old_route_ms = route_turns(
+                    kern, lambda: quantized_matmul(x, q, scale, bits=bits, route="wmma"), 20)
             else:
                 kernel_ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3)
@@ -2269,6 +2335,14 @@ def main():
         for name in names:
             if by_path[path][name] == 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
+    # phases 4-7 run 16-bit attention at head_dim 128 and 64: every flash
+    # launch there takes the TMA + wgmma route
+    for path in ("generate", "serve", "train", "quant_generate_int8", "quant_serve_int8",
+                 "quant_generate_int4"):
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
+                raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
+                                     f"{by_path[path][name]} {name} launches on the wgmma route")
 
     # the headline is the longest prefill of phases 4 and 5; "cases" holds every shape
     b_main, s_main = max(main_shapes, key=lambda bs: bs[1])
@@ -2277,6 +2351,12 @@ def main():
     paged_main = next(c for c in paged_cases if c["main_path"] and c["dtype"] == "bfloat16")
     bwd_main = next(c for c in train_cases["flash_bwd"]
                     if c["case"] == "train" and c["dtype"] == "bfloat16")
+    fwd_train = next(c for c in train_cases["flash_fwd_lse"] if c["dtype"] == "bfloat16")
+
+    def by_route(name):
+        wgmma = sum(c[f"{name}_wgmma"] for c in by_path.values())
+        return {"wgmma": wgmma, "wmma": sum(c[name] for c in by_path.values()) - wgmma}
+
     ce_main = next(c for c in train_cases["ce"] if c["case"] == "train")
     # the quantized matmul's headline: the serving decode's widest linear
     # (m 8 slots, k 4096, n 11008, bf16); "cases" holds every shape
@@ -2298,6 +2378,7 @@ def main():
         "also_replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:255",
         "launches": sum(c["flash_attention_fwd"] for c in by_path.values()),
         "launches_by_path": {p: c["flash_attention_fwd"] for p, c in by_path.items()},
+        "launches_by_route": by_route("flash_attention_fwd"),
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2306,6 +2387,16 @@ def main():
         "library_ms": main_case["library_ms"],
         "shape": f"b={b_main} s={s_main} h=32 d=128 causal bf16 (the longest prefill of "
                  f"the main paths)",
+        "kernel_route": main_case["kernel_route"],
+        "old_route_ms": main_case["old_route_ms"],
+        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64 and 128; wmma: the rest "
+                  "(fp32, head_dim 32/80/96/256); old_route_ms: the wmma kernel forced at the "
+                  "same shape, in turns",
+        "training_shape": f"b={TRAIN_BATCH} s={TRAIN_SEQ} h=16 d=64 causal bf16 with lse",
+        "training_ms": fwd_train["ms"],
+        "training_old_route_ms": fwd_train["old_route_ms"],
+        "training_library_ms": fwd_train["library_ms"],
+        "training_bound_ms": fwd_train["bound_ms"],
         "cases": cases,
         "width_cases": width_cases["flash_fwd"],
     }, {
@@ -2336,6 +2427,9 @@ def main():
                           "deepspeed_tpu/ops/pallas/flash_attention.py:591"],
         "launches": training["launches"]["flash_attention_bwd"],
         "launches_by_path": {p: c["flash_attention_bwd"] for p, c in by_path.items()},
+        "launches_by_route": by_route("flash_attention_bwd"),
+        "kernel_route": bwd_main["kernel_route"],
+        "old_route_ms": bwd_main["old_route_ms"],
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],

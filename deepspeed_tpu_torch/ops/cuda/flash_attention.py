@@ -2,7 +2,7 @@
 
 ``flash_attention_fwd`` is the port of the Pallas TPU forward kernels
 (``deepspeed_tpu/ops/pallas/flash_attention.py``: ``_flash_fwd_single`` and
-``_flash_fwd``) as one hand-written CUDA kernel,
+``_flash_fwd``) as hand-written CUDA in
 ``deepspeed_tpu_torch/csrc/flash_attention_fwd.cu``; with ``return_lse`` it
 also returns the per-row ``lse = m + log(l)`` the backward needs.
 ``flash_attention_bwd`` is the port of the TPU backward (``_flash_bwd``: the
@@ -11,6 +11,14 @@ dQ kernels ``_dq_kernel_single``/``_dq_kernel`` and the dK/dV kernels
 ``deepspeed_tpu_torch/csrc/flash_attention_bwd.cu``. Layout ``[b, s, h, d]``
 in and out; k/v may carry fewer (GQA) heads than q; causal masking is aligned
 to the bottom right (query i sees key j <= i + s_kv - s_q).
+
+Each source has two routes, fixed by ``attention_route(dtype, head_dim)``
+before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64 and 128, the
+widths of every main path: TMA loads through an mbarrier ring, wgmma, the
+softmax and every accumulator in registers) and ``wmma`` (everything else
+the kernels take: fp32, and 16-bit at head_dim 32, 80, 96 and 256; warp-level
+wmma or fp32 FMAs through shared memory). A failed build or launch of either
+raises; neither falls back to the other.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version (``flash_attention_reference``,
@@ -31,6 +39,41 @@ NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # every head_dim of the model registry's presets (each a multiple of 16)
 _KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+
+
+# the routes: the TMA + wgmma kernels take 16-bit types at these head dims
+ROUTES = ("wgmma", "wmma")
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_HEAD_DIMS = (64, 128)
+_WGMMA_BWD_PAD = 128    # the wgmma backward's lse/delta rows: s_q rounded up to this
+
+
+def attention_route(dtype, head_dim):
+    """The route the flash kernels take for ``dtype`` and ``head_dim``: a
+    pure function of the two, decided before the launch. ``"wgmma"`` for
+    bf16/fp16 at head_dim 64 and 128, ``"wmma"`` for every other dtype and
+    head_dim the kernels take; None where no route does."""
+    if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS:
+        return None
+    if dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "wmma"
+
+
+def _pick_route(q, route):
+    """``route`` None takes ``attention_route``; a name forces that route (to
+    time one route against the other in one process) and raises where it
+    cannot take q's dtype and head_dim. ``wmma`` takes every shape the
+    kernels take."""
+    auto = attention_route(q.dtype, q.shape[3])
+    if route is None:
+        return auto
+    if route not in ROUTES:
+        raise ValueError(f"flash attention: unknown route {route!r} (routes {ROUTES})")
+    if auto is None or (route == "wgmma" and auto != "wgmma"):
+        raise ValueError(f"flash attention: route {route!r} does not take {q.dtype} at head_dim "
+                         f"{q.shape[3]} (its route is {auto!r})")
+    return route
 
 
 def _check_shapes(q, k, v, causal):
@@ -140,17 +183,20 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return_lse=False):
+def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return_lse=False,
+                        _route=None):
     """softmax(scale q k^T) v for ``[b, s, h, d]`` tensors (and, with
     ``return_lse``, the fp32 ``[b, h, s_q]`` row logsumexp).
 
     CPU tensors take ``flash_attention_reference`` (kv chunks of
     ``block_size``; the kernel's tiles are fixed). CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise on what it
-    does not take: dtypes other than fp32/fp16/bf16, head_dim outside
-    ``_KERNEL_HEAD_DIMS`` (32, 64, 80, 96, 128, 256), a non-contiguous last
-    dim or rows not 16-byte aligned."""
+    kernel of ``attention_route`` on the current stream (no synchronisation)
+    or raise on what it does not take: dtypes other than fp32/fp16/bf16,
+    head_dim outside ``_KERNEL_HEAD_DIMS`` (32, 64, 80, 96, 128, 256), a
+    non-contiguous last dim or rows not 16-byte aligned. ``_route`` forces a
+    route, for timing one against the other (``_pick_route``)."""
     _check_shapes(q, k, v, causal)
+    route = _pick_route(q, _route)
     if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
                                          block_size=block_size, return_lse=return_lse)
@@ -168,16 +214,19 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return
     from ..op_builder import load_op
 
     lib = load_op("flash_attention_fwd")
+    entry = lib.ds_flash_attention_fwd_wgmma if route == "wgmma" else lib.ds_flash_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ds_flash_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, kvh, s_q, s_kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale), int(bool(causal)), lse.data_ptr() if return_lse else None, stream)
     if err:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash_attention_fwd launch failed ({route} route): cudaError_t {err}")
     LAUNCH_COUNTS["flash_attention_fwd"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS["flash_attention_fwd_wgmma"] += 1
     return (out, lse) if return_lse else out
 
 
@@ -258,15 +307,18 @@ def _check_bwd_inputs(q, k, v, o, lse, do):
                          f"on {q.device}; got {lse.dtype} {tuple(lse.shape)}")
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None, block_size=512):
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None, block_size=512,
+                        _route=None):
     """(dq, dk, dv) of ``o = flash_attention_fwd(q, k, v)`` for the upstream
     gradient ``do``, from the forward's ``lse``; dk and dv have k's (kv) heads.
 
     CPU tensors take ``flash_attention_bwd_reference``. CUDA tensors launch
-    the kernel (a delta pass, the dQ kernel and the dK/dV kernel, counted as
-    one launch) on the current stream, or raise on what it does not take:
-    the forward's restrictions, o/do unlike q, or a missing lse."""
+    the kernels of ``attention_route`` (a delta pass, the dQ kernel and the
+    dK/dV kernel, counted as one launch) on the current stream, or raise on
+    what they do not take: the forward's restrictions, o/do unlike q, or a
+    missing lse. ``_route`` forces a route, as in ``flash_attention_fwd``."""
     _check_shapes(q, k, v, causal)
+    route = _pick_route(q, _route)
     if lse is None:
         raise ValueError("flash backward needs the forward's lse (flash_attention_fwd(..., "
                          "return_lse=True))")
@@ -284,19 +336,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None, block_size
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    if route == "wgmma":
+        # lse * log2(e) and delta rows, s_q padded to the dQ kernel's q tile
+        s_pad = -(-s_q // _WGMMA_BWD_PAD) * _WGMMA_BWD_PAD
+        scratch = torch.empty((2, b * h, s_pad), dtype=torch.float32, device=q.device)
+    else:
+        scratch = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)   # delta
     from ..op_builder import load_op
 
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     lib = load_op("flash_attention_bwd")
+    entry = lib.ds_flash_attention_bwd_wgmma if route == "wgmma" else lib.ds_flash_attention_bwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ds_flash_attention_bwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, kvh, s_q, s_kv, d,
             (ctypes.c_longlong * 24)(*strides), float(scale), int(bool(causal)), stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash_attention_bwd launch failed ({route} route): cudaError_t {err}")
     LAUNCH_COUNTS["flash_attention_bwd"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS["flash_attention_bwd_wgmma"] += 1
     return dq, dk, dv

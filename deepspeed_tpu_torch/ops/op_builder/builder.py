@@ -2,7 +2,8 @@
 
 Each kernel library is one or more ``csrc/*.cu`` sources with a plain C
 interface. ``nvcc`` compiles them straight into a shared library for Hopper
-(``sm_90a``), keyed by a hash of the sources and the flags, under
+(``sm_90a``), keyed by a hash of the sources, the ``csrc`` headers they
+include (``#include "x.cuh"``, followed through headers too) and the flags, under
 ``build/torch_kernels/`` of the checkout; ``ctypes`` loads it. No PyTorch
 headers are compiled, which keeps a cold build to seconds. A failed build
 raises with nvcc's stderr.
@@ -11,6 +12,7 @@ raises with nvcc's stderr.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,6 +23,8 @@ _PKG_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 _DEFAULT_BUILD_DIR = os.environ.get(
     "DS_TORCH_BUILD_DIR",
     os.path.join(os.path.dirname(_PKG_ROOT), "build", "torch_kernels"))
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -47,16 +51,33 @@ class CUDAOpBuilder:
 
     def __init__(self):
         self.build_dir = _DEFAULT_BUILD_DIR
+        self.csrc_dir = os.path.join(_PKG_ROOT, "csrc")
         self.build_log = ""  # nvcc's stderr of the last build (ptxas register/spill report)
         self.build_seconds = 0.0
 
     def sources(self):
-        return [os.path.join(_PKG_ROOT, "csrc", s) for s in self.SOURCES]
+        return [os.path.join(self.csrc_dir, s) for s in self.SOURCES]
+
+    def headers(self):
+        """The local headers the sources include, directly or through other
+        headers, in the order first met (a quoted include that names no file
+        beside its includer is a system header and is skipped)."""
+        found, todo = [], list(self.sources())
+        while todo:
+            with open(todo.pop(0), encoding="utf-8") as f:
+                text = f.read()
+            for name in _INCLUDE.findall(text):
+                path = os.path.join(self.csrc_dir, name)
+                if path not in found and os.path.isfile(path):
+                    found.append(path)
+                    todo.append(path)
+        return found
 
     def _signature(self):
         h = hashlib.sha256()
-        for src in self.sources():
-            with open(src, "rb") as f:
+        for path in self.sources() + self.headers():
+            h.update(os.path.basename(path).encode())
+            with open(path, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
@@ -111,31 +132,33 @@ class CUDAOpBuilder:
 
 
 class FlashAttentionBuilder(CUDAOpBuilder):
-    """``csrc/flash_attention_fwd.cu``: the flash-attention forward kernel."""
+    """``csrc/flash_attention_fwd.cu``: the flash-attention forward, both
+    routes (``ds_flash_attention_fwd``: wmma/FMA; ``..._wgmma``: TMA + wgmma)."""
 
     NAME = "flash_attention_fwd"
     SOURCES = ("flash_attention_fwd.cu",)
 
     def bind(self, lib):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn = lib.ds_flash_attention_fwd
-        fn.argtypes = ([p] * 4 + [i] * 7 + [ll] * 12
-                       + [ctypes.c_float, i, p, p])
-        fn.restype = ctypes.c_int
+        for fn in (lib.ds_flash_attention_fwd, lib.ds_flash_attention_fwd_wgmma):
+            fn.argtypes = ([p] * 4 + [i] * 7 + [ll] * 12
+                           + [ctypes.c_float, i, p, p])
+            fn.restype = ctypes.c_int
 
 
 class FlashAttentionBwdBuilder(CUDAOpBuilder):
     """``csrc/flash_attention_bwd.cu``: the flash-attention backward (delta,
-    dQ and dK/dV kernels, one call)."""
+    dQ and dK/dV kernels, one call), both routes."""
 
     NAME = "flash_attention_bwd"
     SOURCES = ("flash_attention_bwd.cu",)
 
     def bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.ds_flash_attention_bwd
-        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.ds_flash_attention_bwd, lib.ds_flash_attention_bwd_wgmma):
+            fn.argtypes = ([p] * 10 + [i] * 7
+                           + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p])
+            fn.restype = ctypes.c_int
 
 
 class FusedCEForwardBuilder(CUDAOpBuilder):

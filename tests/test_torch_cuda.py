@@ -297,6 +297,90 @@ def test_flash_autograd_reaches_both_kernels(cuda):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+# -- the two routes of the flash kernels ---------------------------------------------
+
+_ROUTE_SHAPES = [
+    # (b, s_q, s_kv, heads, kv_heads, causal, lse)
+    (2, 200, 200, 4, 4, True, True),     # ragged: two q tiles, the last part empty
+    (1, 77, 300, 8, 2, True, False),     # s_q < s_kv (bottom-right mask), GQA 4
+    (1, 130, 90, 4, 1, False, True),     # non-causal, s_q > s_kv, MQA
+    (1, 300, 300, 8, 2, False, False),   # non-causal, GQA 4, ragged
+    (1, 256, 512, 4, 4, True, True),     # s_q < s_kv on tile bounds
+]
+_ROUTE_IDS = ["ragged", "sq<skv-gqa4", "noncausal-mqa", "noncausal-gqa4", "sq256<skv512"]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", _ROUTE_SHAPES, ids=_ROUTE_IDS)
+def test_forward_routes_match_plain(cuda, shape, dtype, d, route):
+    """The TMA + wgmma forward (the route of 16-bit types at head_dim 64 and
+    128) and the wmma kernel forced at the same shapes: o within 1e-5 +
+    ``rounding_bound`` of the plain version, lse within 1e-5 + 1e-5 |lse|;
+    each launch counted on its route."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import attention_route
+
+    b, s_q, s_kv, h, kvh, causal, with_lse = shape
+    assert attention_route(dtype, d) == "wgmma"
+    q, k, v = _qkv(b, s_q, s_kv, h, kvh, d, dtype, cuda)
+    before = dict(LAUNCH_COUNTS)
+    forced = None if route == "wgmma" else route
+    got = flash_attention_fwd(q, k, v, causal=causal, return_lse=with_lse, _route=forced)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert (LAUNCH_COUNTS["flash_attention_fwd_wgmma"]
+            == before["flash_attention_fwd_wgmma"] + (route == "wgmma"))
+    out = got[0] if with_lse else got
+    _assert_matches_plain(out, q, k, v, causal)
+    if with_lse:
+        _, ref_lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
+        assert got[1].shape == (b, h, s_q)
+        assert ((got[1] - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", [s[:6] for s in _ROUTE_SHAPES], ids=_ROUTE_IDS)
+def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
+    """The TMA + wgmma backward and the wmma kernels forced at the same
+    shapes: dq, dk, dv within 1e-5 + ``bwd_rounding_bound``; a second launch
+    gives bitwise the same gradients (no atomics)."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
+
+    b, s_q, s_kv, h, kvh, causal = shape
+    args = _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, cuda)
+    forced = None if route == "wgmma" else route
+    before = dict(LAUNCH_COUNTS)
+    grads = flash_attention_bwd(*args, causal=causal, _route=forced)
+    again = flash_attention_bwd(*args, causal=causal, _route=forced)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert (LAUNCH_COUNTS["flash_attention_bwd_wgmma"]
+            == before["flash_attention_bwd_wgmma"] + 2 * (route == "wgmma"))
+    refs = flash_attention_bwd_reference(*args, causal=causal)
+    bounds = bwd_rounding_bound(*args, refs, causal=causal)
+    for name, g, g2, r, bound in zip(("dq", "dk", "dv"), grads, again, refs, bounds):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert torch.equal(g, g2), f"{name}: two launches differ"
+        diff = (g.float() - r.float()).abs()
+        worst = (diff / (1e-5 + bound)).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+
+
+def test_forced_route_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd
+
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 96)):
+        q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, d, True, dtype, cuda)
+        with pytest.raises(ValueError, match="route"):
+            flash_attention_fwd(q, k, v, _route="wgmma")
+        with pytest.raises(ValueError, match="route"):
+            flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
+
+
 # -- fused cross-entropy forward ---------------------------------------------------
 
 def _ce_inputs(tokens, d, vocab, dtype, device, bias=False, seed=0):

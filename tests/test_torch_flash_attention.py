@@ -155,3 +155,80 @@ def test_every_preset_head_dim_is_a_kernel_width():
         missing = {k: d for k, d in dims.items() if d not in gate}
         assert not missing, f"{name} kernels refuse {missing}"
         assert all(d % 16 == 0 for d in gate)  # wmma's fragment depth
+
+
+def test_attention_route_is_fixed_by_dtype_and_head_dim():
+    """bf16 and fp16 at head_dim 64 and 128 (Llama-7B's and GPT-2 medium's
+    widths) take the TMA + wgmma kernels; fp32 and the other widths the
+    wmma kernels; what no kernel takes has no route."""
+    route = cuda_flash.attention_route
+    for dtype in (torch.bfloat16, torch.float16):
+        assert route(dtype, 64) == route(dtype, 128) == "wgmma"
+        for d in (32, 80, 96, 256):
+            assert route(dtype, d) == "wmma"
+    for d in cuda_flash._KERNEL_HEAD_DIMS:
+        assert route(torch.float32, d) == "wmma"
+    assert route(torch.bfloat16, 48) is None
+    assert route(torch.float64, 64) is None
+
+
+def test_every_preset_head_dim_has_a_route():
+    """Every preset of the registry maps to a route in each kernel dtype,
+    and the main paths' models (Llama-7B bf16, GPT-2 medium bf16) to wgmma."""
+    dims = _registry_head_dims()
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        missing = {k: d for k, d in dims.items() if cuda_flash.attention_route(dtype, d) is None}
+        assert not missing, f"{dtype}: no route for {missing}"
+    assert cuda_flash.attention_route(torch.bfloat16, dims[("llama", "7b")]) == "wgmma"
+    assert cuda_flash.attention_route(torch.bfloat16, dims[("gpt2", "medium")]) == "wgmma"
+
+
+def test_forced_route_the_shape_cannot_take_raises():
+    """``_route`` forces a route (for timing one against the other); one
+    that cannot take the dtype and head_dim raises, on CPU tensors too,
+    and the route it can take still gives the plain version."""
+    q, k, v = (torch.tensor(x) for x in _qkv(1, 16, 16, 2, 32, 0))
+    for route in ("wgmma", "tiled"):
+        with pytest.raises(ValueError, match="route"):
+            flash_attention_fwd(q, k, v, _route=route)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_fwd(q[..., :24], k[..., :24], v[..., :24], _route="wmma")
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_fwd(q16, k16, v16, _route="wgmma")
+    torch.testing.assert_close(flash_attention_fwd(q, k, v, _route="wmma"),
+                               flash_attention_reference(q, k, v), rtol=0, atol=0)
+
+
+def test_builder_signature_sees_the_included_headers(tmp_path):
+    """A kernel library's cache key hashes the ``csrc`` headers its sources
+    include (through other headers too), so an edit to a shared header
+    builds anew instead of loading a stale library; no nvcc needed."""
+    import shutil
+
+    from deepspeed_tpu_torch.ops.op_builder import ALL_OPS
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ALL_OPS["flash_attention_fwd"]().csrc_dir, csrc)
+    builders = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul",
+                 "fused_ce_forward"):
+        builders[name] = ALL_OPS[name]()
+        builders[name].csrc_dir = str(csrc)
+    shared = csrc / "sm90_utils.cuh"
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul"):
+        assert str(shared) in builders[name].headers(), name
+    before = {name: b._signature() for name, b in builders.items()}
+    shared.write_text(shared.read_text() + "\n// an edit\n")
+    after = {name: b._signature() for name, b in builders.items()}
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul"):
+        assert after[name] != before[name], name
+    assert after["fused_ce_forward"] == before["fused_ce_forward"]
+    # a header that a header includes counts too
+    (csrc / "inner.cuh").write_text("// v1\n")
+    shared.write_text('#include "inner.cuh"\n' + shared.read_text())
+    b = builders["flash_attention_fwd"]
+    assert str(csrc / "inner.cuh") in b.headers()
+    sig = b._signature()
+    (csrc / "inner.cuh").write_text("// v2\n")
+    assert b._signature() != sig

@@ -150,3 +150,21 @@ def test_bwd_rounding_bound_covers_a_model_of_the_kernels_rounding():
         assert ((got - r.float()).abs() <= 1e-5 + bd).all(), name
     assert bwd_rounding_bound(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
                               refs) is None
+
+
+def test_bwd_forced_route_the_shape_cannot_take_raises():
+    """``_route`` on the backward: ``wgmma`` raises for fp32 and for a
+    16-bit head_dim outside 64/128, an unknown name raises, and ``wmma``
+    (which takes every kernel shape) gives the plain backward on CPU."""
+    q, k, v, do = (torch.as_tensor(a) for a in _inputs(1, 16, 16, 2, 2, 32, seed=2))
+    o, lse = flash_attention_reference(q, k, v, causal=True, return_lse=True)
+    args = (q, k, v, o, lse, do)
+    for route in ("wgmma", "fast"):
+        with pytest.raises(ValueError, match="route"):
+            flash_attention_bwd(*args, _route=route)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd(*(t.to(torch.bfloat16) if t is not lse else t for t in args),
+                            _route="wgmma")
+    for got, want in zip(flash_attention_bwd(*args, _route="wmma"),
+                         flash_attention_bwd_reference(*args)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
