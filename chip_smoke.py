@@ -12,8 +12,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the least time the card could take (the bound) and one PyTorch library
      call computing the same function as a yardstick (never used by the port);
      the flash forward and backward at the main paths' shapes on their TMA +
-     wgmma route (bf16 at head_dim 128 and 64), each case also held and
-     timed through the old wmma route in turns (``_route="wmma"``); the
+     wgmma route (bf16 at head_dim 128 and 64), the CE forward and the
+     block-sparse backward on theirs, each case also held and timed through
+     the old wmma route in turns (``_route="wmma"``); the
      quantized matmul (int8, int4) at Llama-7B's linears for every token
      count phase 7 runs (a TMA + wgmma route case also through the old wmma
      route, in turns), and the paged decode on an int8 pool; the attention
@@ -41,7 +42,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      shape and config (seq 1024, batch 12, bf16, AdamW, ZeRO 0, flash
      attention, the CE forward kernel), 2 warm-up and 8 timed ``train_batch``
      steps on one fixed batch, with the launch counts read around every step
-     and one more step under the profiler;
+     (every flash and CE launch on the wgmma route) and one more step under
+     the profiler;
   7. the quantized serving path: ``init_inference`` on full Llama-7B with
      ``quant`` int8 (group 64) and an int8 paged pool with the ``fused``
      backend, ``generate()`` over a subset of phase 4's requests and
@@ -55,7 +57,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``attention_impl="block_sparse"`` (the fixed pattern of 128-token blocks,
      4 local and 1 global), 2 warm-up and 8 timed ``train_batch`` steps and
      one ``eval_batch``, with the launch counts read around every step (24
-     block-sparse forward, 24 backward and 1 CE launch, no flash launch) and
+     block-sparse forward, 24 backward and 1 CE launch, the backward and CE
+     on their wgmma routes, no flash launch) and
      one more step under the profiler. Phase 2 holds the block-sparse
      forward and backward against their plain versions at its layers, at
      the same tokens as b 3 x s 4096 (beside the dense flash kernels) and at
@@ -866,7 +869,7 @@ def phase_train_kernels(torch, F):
     a few more, each timed beside its bound, its plain version and a
     PyTorch yardstick: SDPA's forward and backward for the flash kernels,
     ``F.linear`` + ``logsumexp`` + ``gather`` for the CE forward."""
-    from deepspeed_tpu_torch.ops.cuda.cross_entropy import (accumulation_bound,
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import (accumulation_bound, ce_route,
                                                             fused_ce_forward,
                                                             fused_ce_forward_reference)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route,
@@ -1023,20 +1026,34 @@ def phase_train_kernels(torch, F):
         labels[:n_ignored] = -100
         safe = torch.where(labels != -100, labels, 0)   # as fused_cross_entropy passes them
         bvec = rnd(vocab) if bias else None
+        route = ce_route(x.dtype, x.shape[1])
         lse, lab = fused_ce_forward(x, emb, safe, bvec)
         ref_lse, ref_lab = fused_ce_forward_reference(x, emb, safe, bvec)
+        # the wmma kernel at the same shape holds the plain version too
+        old = fused_ce_forward(x, emb, safe, bvec, _route="wmma") if route == "wgmma" else None
         torch.cuda.synchronize()
         tol = f"{ATOL_16:g} + fp32 accumulation bound"
         limit = ATOL_16 + accumulation_bound(x, emb, ref_lse)
         use = max(check_limit(f"ce {name} lse", (lse - ref_lse).abs(), limit, tol),
                   check_limit(f"ce {name} label logit", (lab - ref_lab).abs(), limit, tol))
         err = max((lse - ref_lse).abs().max().item(), (lab - ref_lab).abs().max().item())
+        if old is not None:
+            check_limit(f"ce {name} lse (wmma route)", (old[0] - ref_lse).abs(), limit, tol)
+            check_limit(f"ce {name} label logit (wmma route)", (old[1] - ref_lab).abs(), limit,
+                        tol)
+        del old
 
         def lib():
             logits = F.linear(x, emb, bvec.to(torch.bfloat16) if bias else None).float()
             return torch.logsumexp(logits, -1), logits.gather(1, safe[:, None])
 
-        kernel_ms = time_ms(lambda: fused_ce_forward(x, emb, safe, bvec), 10)
+        kernel = lambda: fused_ce_forward(x, emb, safe, bvec)
+        old_route_ms = None
+        if route == "wgmma":
+            kernel_ms, old_route_ms = route_turns(
+                kernel, lambda: fused_ce_forward(x, emb, safe, bvec, _route="wmma"), 10)
+        else:
+            kernel_ms = time_ms(kernel, 10)
         plain_ms = time_ms(lambda: fused_ce_forward_reference(x, emb, safe, bvec), 3)
         library_ms = time_ms(lib, 10)
         flops = 2 * t * vocab * 1024
@@ -1044,13 +1061,16 @@ def phase_train_kernels(torch, F):
         t_ops = flops / H100_BF16_FLOPS
         bound_ms = max(t_ops, n_bytes / H100_BYTES) * 1e3
         r = dict(case=name, dtype="bfloat16", tokens=t, d=1024, vocab=vocab, ignored=n_ignored,
-                 bias=bias, max_abs_err=err, tolerance=tol, limit_use=use, ms=kernel_ms,
-                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                 bias=bias, max_abs_err=err, tolerance=tol, limit_use=use, kernel_route=route,
+                 ms=kernel_ms, old_route_ms=old_route_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms,
                  bound_by="operations" if t_ops * H100_BYTES >= n_bytes else "bytes",
                  flops=flops, bytes=n_bytes, tflops=flops / kernel_ms / 1e9)
-        log(f"  ce fwd {name:18s} err {err:.2e} ({use:.2f} of the limit)  kernel "
-            f"{kernel_ms:.4f} ms  plain {plain_ms:.4f} ms  linear+logsumexp {library_ms:.4f} ms  "
-            f"bound {bound_ms:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
+        was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
+        log(f"  ce fwd {name:18s} err {err:.2e} ({use:.2f} of the limit)  {route} "
+            f"{kernel_ms:.4f} ms{was}  plain {plain_ms:.4f} ms  linear+logsumexp "
+            f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms ({r['bound_by']})  "
+            f"{r['tflops']:.1f} TFLOP/s")
         out["ce"].append(r)
         del x, emb, labels, safe, bvec, lse, lab, ref_lse, ref_lab, limit
     torch.cuda.empty_cache()
@@ -1434,8 +1454,8 @@ def phase_sparse_kernels(torch, F):
     from deepspeed_tpu_torch.ops import sparse_attention as SA
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
-        block_sparse_attention_fwd, block_sparse_attention_fwd_reference, bwd_rounding_bound,
-        rounding_bound)
+        block_sparse_attention_fwd, block_sparse_attention_fwd_reference, block_sparse_route,
+        bwd_rounding_bound, rounding_bound)
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (flash_attention_bwd,
                                                               flash_attention_fwd)
 
@@ -1466,9 +1486,13 @@ def phase_sparse_kernels(torch, F):
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True)
         ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal,
                                                             return_lse=True)
+        route = block_sparse_route(dtype, dd, block)
         grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal)
         refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
                                                     causal=causal)
+        # the wmma kernels at the same shape hold the plain version too
+        old_grads = (block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal,
+                                                _route="wmma") if route == "wgmma" else None)
         torch.cuda.synchronize()
         label = f"block-sparse {name} {dtype}"
         if dtype == torch.float32:
@@ -1488,6 +1512,9 @@ def phase_sparse_kernels(torch, F):
             diff = (grads[i].float() - refs[i].float()).abs()
             uses[gname] = check_limit(f"{label} {gname}", diff, limits[i], tol)
             errs[gname] = diff.max().item()
+            if old_grads is not None:
+                check_limit(f"{label} {gname} (wmma route)",
+                            (old_grads[i].float() - refs[i].float()).abs(), limits[i], tol)
         common = dict(case=name, dtype=str(dtype).split(".")[1], b=b, s=s, h=hh, d=dd,
                       pattern=pattern, block=block, causal=causal,
                       main_path=name == "main" and dtype == torch.bfloat16,
@@ -1497,8 +1524,9 @@ def phase_sparse_kernels(torch, F):
                  lse_max_abs_err=(lse - ref_lse).abs().max().item(), limit_use=use,
                  lse_limit_use=lse_use)
         g = dict(common, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-                 limit_use=max(uses.values()), limit_use_by_grad=uses)
-        del limit, limits, grads, refs
+                 limit_use=max(uses.values()), limit_use_by_grad=uses, kernel_route=route,
+                 old_route_ms=None)
+        del limit, limits, grads, refs, old_grads
         if (name, dtype) in {(t[0], t[-1]) for t in timed}:
             kept = kept_pairs(attn.layout, block, s, s, causal)
             peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
@@ -1515,8 +1543,14 @@ def phase_sparse_kernels(torch, F):
                                                                  return_lse=True), 20)
             f["plain_ms"] = time_ms(lambda: block_sparse_attention_fwd_reference(
                 q, k, v, lists, causal=causal, return_lse=True), 3)
-            g["ms"] = time_ms(lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
-                                                                 causal=causal), 20)
+            kernel = lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
+                                                        causal=causal)
+            if route == "wgmma":
+                g["ms"], g["old_route_ms"] = route_turns(
+                    kernel, lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
+                                                               causal=causal, _route="wmma"), 20)
+            else:
+                g["ms"] = time_ms(kernel, 20)
             g["plain_ms"] = time_ms(lambda: block_sparse_attention_bwd_reference(
                 q, k, v, o, lse, do, lists, causal=causal), 3)
             # the yardstick: SDPA with the token-level mask of (layout AND causal)
@@ -1542,8 +1576,11 @@ def phase_sparse_kernels(torch, F):
             for r, part in ((f, "fwd"), (g, "bwd")):
                 r["tflops"] = r["flops"] / r["ms"] / 1e9
                 extra = f"  dense flash {r['flash_ms']:.4f} ms" if "flash_ms" in r else ""
+                was = (f" (wmma route {r['old_route_ms']:.4f} ms)"
+                       if r.get("old_route_ms") is not None else "")
                 log(f"  block-sparse {part} {name:10s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
-                    f"({r['limit_use']:.2f} of the limit)  kernel {r['ms']:.4f} ms  plain "
+                    f"({r['limit_use']:.2f} of the limit)  {r.get('kernel_route', 'wmma')} "
+                    f"{r['ms']:.4f} ms{was}  plain "
                     f"{r['plain_ms']:.4f} ms  sdpa+mask {r['library_ms']:.4f} ms  bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s"
                     f"{extra}")
@@ -1552,9 +1589,11 @@ def phase_sparse_kernels(torch, F):
         bwd_out.append(g)
         del q, k, v, do, o, lse, ref, ref_lse
     worst = max(max(r["limit_use"] for r in fwd_out), max(r["limit_use"] for r in bwd_out))
+    n_wgmma = sum(r["kernel_route"] == "wgmma" for r in bwd_out)
     log(f"  block-sparse breadth: {len(breadth)} cases (5 patterns x blocks 16/32/64/128 x "
         f"causal/non-causal x bf16/fp16/fp32), forward, lse, dq, dk, dv each within its "
-        f"limit (worst {worst:.2f} of a limit)")
+        f"limit (worst {worst:.2f} of a limit); {n_wgmma} backward cases on the wgmma route, "
+        f"each also held on the wmma route")
     torch.cuda.empty_cache()
     return {"fwd": fwd_out, "bwd": bwd_out}, checked
 
@@ -1667,13 +1706,17 @@ def phase_training(torch, checked, sparse=False):
         f"compute) in {time.perf_counter() - t0:.3f} s")
     batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size,
                                                             (TRAIN_BATCH, TRAIN_SEQ))}
+    # every CE launch, flash launch and block-sparse backward launch of the
+    # step on the TMA + wgmma route
     if sparse:
         expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
-                    "fused_ce_forward": 1, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+                    "block_sparse_attention_bwd_wgmma": L, "fused_ce_forward": 1,
+                    "fused_ce_forward_wgmma": 1, "flash_attention_fwd": 0,
+                    "flash_attention_bwd": 0}
     else:
-        # every flash launch of the step on the TMA + wgmma route
         expected = {"flash_attention_fwd": L, "flash_attention_bwd": L, "fused_ce_forward": 1,
-                    "flash_attention_fwd_wgmma": L, "flash_attention_bwd_wgmma": L}
+                    "fused_ce_forward_wgmma": 1, "flash_attention_fwd_wgmma": L,
+                    "flash_attention_bwd_wgmma": L}
     reset_launch_counts()
     losses, step_ms = [], []
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -1691,7 +1734,7 @@ def phase_training(torch, checked, sparse=False):
         before = dict(LAUNCH_COUNTS)
         eval_loss = float(engine.eval_batch(batch=batch))
         delta = {k: LAUNCH_COUNTS[k] - before[k] for k in expected}
-        want = dict(expected, block_sparse_attention_bwd=0)
+        want = dict(expected, block_sparse_attention_bwd=0, block_sparse_attention_bwd_wgmma=0)
         if delta != want or not math.isfinite(eval_loss):
             raise AssertionError(f"eval_batch: loss {eval_loss}, launches {delta}, expected "
                                  f"{want}")
@@ -2241,7 +2284,7 @@ def main():
     build_s = time.perf_counter() - t
     for b in builders:
         regs = [l.strip() for l in b.build_log.splitlines()
-                if "registers" in l or "spill" in l]
+                if "registers" in l or "spill" in l or "Performance" in l]
         log(f"  {b.NAME}: nvcc {b.build_seconds:.1f} s; ptxas: {' | '.join(regs)}")
     log(f"  build phase {build_s:.1f} s")
 
@@ -2343,6 +2386,13 @@ def main():
             if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
                 raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                      f"{by_path[path][name]} {name} launches on the wgmma route")
+    # phases 6 and 8: every CE launch, and every block-sparse backward launch,
+    # on the TMA + wgmma route
+    for path, name in (("train", "fused_ce_forward"), ("train_block_sparse", "fused_ce_forward"),
+                       ("train_block_sparse", "block_sparse_attention_bwd")):
+        if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
+            raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
+                                 f"{by_path[path][name]} {name} launches on the wgmma route")
 
     # the headline is the longest prefill of phases 4 and 5; "cases" holds every shape
     b_main, s_main = max(main_shapes, key=lambda bs: bs[1])
@@ -2370,6 +2420,8 @@ def main():
                            if c["main_path"] and c["dtype"] == "bfloat16")
     sparse_main = {part: next(c for c in sparse_cases[part] if c["main_path"])
                    for part in ("fwd", "bwd")}
+    long_bwd = next(c for c in sparse_cases["bwd"]
+                    if c["case"] == "long-s4096" and c["dtype"] == "bfloat16")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2447,6 +2499,11 @@ def main():
         "replaces": "deepspeed_tpu/ops/pallas/cross_entropy.py:108",
         "launches": sum(c["fused_ce_forward"] for c in by_path.values()),
         "launches_by_path": {p: c["fused_ce_forward"] for p, c in by_path.items()},
+        "launches_by_route": by_route("fused_ce_forward"),
+        "kernel_route": ce_main["kernel_route"],
+        "old_route_ms": ce_main["old_route_ms"],
+        "routes": "wgmma: TMA + wgmma, bf16/fp16 with d a multiple of 64; wmma: the rest "
+                  "(fp32); old_route_ms: the wmma kernel forced at the same shape, in turns",
         "max_abs_err": ce_main["max_abs_err"],
         "ms": ce_main["ms"],
         "plain_ms": ce_main["plain_ms"],
@@ -2510,7 +2567,15 @@ def main():
         "replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:"
                     + ("335" if part == "fwd" else "363"),
         **({} if part == "fwd" else
-           {"also_replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:403"}),
+           {"also_replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:403",
+            "launches_by_route": by_route("block_sparse_attention_bwd"),
+            "kernel_route": head["kernel_route"], "old_route_ms": head["old_route_ms"],
+            "routes": "wgmma: the flash backward's TMA + wgmma kernels over the layout's "
+                      "lists, bf16/fp16 at head_dim 64 and 128 with blocks a multiple of 128; "
+                      "wmma: the rest; old_route_ms: the wmma kernels forced at the same shape, "
+                      "in turns",
+            "long_s4096": {k: long_bwd[k] for k in ("ms", "old_route_ms", "library_ms",
+                                                    "flash_ms", "bound_ms", "max_abs_err")}}),
         "launches": sum(c[f"block_sparse_attention_{part}"] for c in by_path.values()),
         "launches_by_path": {p: c[f"block_sparse_attention_{part}"] for p, c in by_path.items()},
         "max_abs_err": head["max_abs_err"],

@@ -48,19 +48,34 @@
 // blocks) the kept score elements need 16 GFLOP forward (2 products of 2 d
 // operations each) and 40 GFLOP backward (5 products), 0.016 / 0.041 ms at
 // 989 TFLOP/s, while q, k, v, o (and dO, lse, dq, dk, dv) take 0.030 / 0.060
-// ms at 3.35 TB/s: bytes bound it. The design is the port's simple flash design
-// (csrc/flash_attention_{fwd,bwd}.cu) with sparse loops; wgmma, TMA and warp
-// specialisation are later work.
+// ms at 3.35 TB/s: bytes bound it.
 //
-// Design: TILE / 16 warps per block (TILE = 16, 32 or 64), each owning 16
-// rows of the block's tile end to end. Tiles are staged in shared memory with
-// 16-byte loads; S = Q K^T and the other products are warp-level tensor-core
-// MMA (nvcuda::wmma 16x16x16, fp32 accumulate) for bf16/fp16 and fp32 FMAs
-// for fp32 (full fp32, no TF32; the last column group masked where head_dim
-// is not a multiple of 32); S, P, dS and the fp32 accumulators live in
-// shared memory. fp32 dK/dV blocks step over q in 32-row tiles so that their
-// shared memory fits the 227 KB a block can have. The C entry points launch
-// on the caller's stream, do not synchronise and return a cudaError_t.
+// The backward has two routes, fixed by the caller before the launch
+// (ops/cuda/block_sparse_attention.py block_sparse_route): the wgmma route
+// (bf16 / fp16 at head_dim 64 and 128 with a block that is a multiple of 128,
+// the training layout's; ds_block_sparse_attention_bwd_wgmma at the end of
+// this file) runs the flash backward's TMA + wgmma kernels
+// (csrc/flash_bwd_sm90.cuh) with a list-driven tile schedule: a 128-token
+// layout block is exactly one 128-row q tile of its dQ kernel and one 128-row
+// kv tile of its dK/dV kernel, so the dQ block walks the 64-row halves of its
+// list's kv blocks and the dK/dV block the q tiles of its transposed list's
+// q blocks; the producer thread reads the list and issues the TMA loads from
+// it, the consumers only count tiles and mask the diagonal. The grid takes
+// the layout rows longest list first (SparseLayout's orders). The forward,
+// and the backward's other shapes (fp32, head_dims 32/80/96/256, blocks not
+// a multiple of 128), take the wmma route below: the port's simple flash
+// design (csrc/flash_attention_{fwd,bwd}.cu) with sparse loops.
+//
+// The wmma route's design: TILE / 16 warps per block (TILE = 16, 32 or 64),
+// each owning 16 rows of the block's tile end to end. Tiles are staged in
+// shared memory with 16-byte loads; S = Q K^T and the other products are
+// warp-level tensor-core MMA (nvcuda::wmma 16x16x16, fp32 accumulate) for
+// bf16/fp16 and fp32 FMAs for fp32 (full fp32, no TF32; the last column
+// group masked where head_dim is not a multiple of 32); S, P, dS and the
+// fp32 accumulators live in shared memory. fp32 dK/dV blocks step over q in
+// 32-row tiles so that their shared memory fits the 227 KB a block can have.
+// The C entry points launch on the caller's stream, do not synchronise and
+// return a cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -797,4 +812,62 @@ extern "C" int ds_block_sparse_attention_bwd(
   p.scale = scale;
   p.causal = causal;
   return (int)run(p, dtype, batch, head_dim, true, stream);
+}
+
+// ===================================================================================
+// The backward's wgmma route: bf16 / fp16 at head_dim 64 and 128, blocks a
+// multiple of 128, on the kernels of csrc/flash_bwd_sm90.cuh with the layout's
+// lists as their tile schedule (ListDq, ListDkv).
+// ===================================================================================
+
+#include "flash_bwd_sm90.cuh"
+
+// The arguments as ds_block_sparse_attention_bwd's, except that `scratch` is
+// the caller's fp32 buffer of 2 * batch * heads * s_q floats (lse2 rows, then
+// delta rows), which the call fills, and q_order / kv_order are the grid's
+// order of the layout's q and kv blocks (permutations, int32). Every stride a
+// multiple of 8 elements, every base 16-byte aligned (TMA). Returns a
+// cudaError_t; what the route does not take is cudaErrorInvalidValue.
+extern "C" int ds_block_sparse_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const float* lse, float* scratch, void* dq, void* dk, void* dv, const int* fidx,
+    const int* fcnt, const int* bidx, const int* bcnt, const int* q_order, const int* kv_order,
+    int max_a, int max_aq, int dtype, int batch, int heads, int s_q, int s_kv, int head_dim,
+    int block, const long long* strides, float scale, int causal, void* stream) {
+  namespace fb = flash_bwd_sm90;
+  if (batch <= 0 || heads <= 0 || block <= 0 || block % fb::PAD != 0 || s_q <= 0 ||
+      s_kv <= 0 || s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
+      s_q / fb::PAD > 65535 || s_kv / fb::PAD > 65535 || max_a <= 0 || max_aq <= 0)
+    return (int)cudaErrorInvalidValue;
+  fb::Args a;
+  a.s_pad = s_q;   // a multiple of the 128-row pad already
+  const long long rows = (long long)batch * heads * a.s_pad;
+  a.lse = lse;
+  a.lse2 = scratch;
+  a.delta = scratch + rows;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.heads = heads;
+  a.kv_heads = heads;
+  a.s_q = s_q;
+  a.s_kv = s_kv;
+  for (int t = 0; t < 8; ++t)
+    for (int j = 0; j < 3; ++j) a.st[t][j] = strides[3 * t + j];
+  a.scale = scale;
+  a.causal = causal;
+  const fb::ListParams fwd{fidx, fcnt, q_order, max_a, block};
+  const fb::ListParams bwd{bidx, bcnt, kv_order, max_aq, block};
+  const void* ptr[8] = {q, k, v, o, dout, dq, dk, dv};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1 && head_dim == 64)
+    err = fb::launch<__half, 64, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+  if (dtype == 1 && head_dim == 128)
+    err = fb::launch<__half, 128, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+  if (dtype == 2 && head_dim == 64)
+    err = fb::launch<__nv_bfloat16, 64, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+  if (dtype == 2 && head_dim == 128)
+    err = fb::launch<__nv_bfloat16, 128, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+  return (int)err;
 }

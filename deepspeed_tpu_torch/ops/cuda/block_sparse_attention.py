@@ -10,6 +10,14 @@ holds a block layout (``ops/sparse_attention/sparsity_config.py``) with its
 per-q-block active kv lists and the transposed lists, on one device, built
 once; every call reads them there.
 
+The backward has two routes, fixed by ``block_sparse_route(dtype, head_dim,
+block)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64 and 128
+with a block that is a multiple of 128: the flash backward's TMA + wgmma
+kernels walking the layout's lists, the grid in the layout's heavy-first
+order) and ``wmma`` (everything else the kernels take: warp-level wmma or
+fp32 FMAs through shared memory). The forward has the ``wmma`` kernel only.
+A failed build or launch raises; neither route falls back to the other.
+
 Layout ``[b, s, h, d]`` in and out, one head count for q, k and v (the model
 repeats GQA kv heads before the call, as the JAX package does); causal
 masking is aligned to the bottom right (query i sees key j <= i + s_kv -
@@ -28,11 +36,45 @@ import math
 import numpy as np
 import torch
 
-from . import LAUNCH_COUNTS
+from . import LAUNCH_COUNTS, resolve_route
 from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (the gate)
-                              _UNIT_ROUNDOFF, _check_kernel_inputs, _on_cpu)
+                              _UNIT_ROUNDOFF, _WGMMA_DTYPES, _WGMMA_HEAD_DIMS,
+                              _check_kernel_inputs, _on_cpu)
 
 NEG_INF = -1e30
+
+# the backward's TMA + wgmma route takes 16-bit types at head_dim 64 and 128
+# when a layout block is a whole number of its 128-row tiles
+_WGMMA_BLOCK = 128
+
+
+def block_sparse_route(dtype, head_dim, block):
+    """The route the block-sparse backward takes for ``dtype``, ``head_dim``
+    and the layout's ``block``: a pure function of the three, decided before
+    the launch. ``"wgmma"`` for bf16/fp16 at head_dim 64 and 128 with a block
+    that is a multiple of 128, ``"wmma"`` for every other shape the kernels
+    take (fp32/fp16/bf16, head_dim in ``_KERNEL_HEAD_DIMS``, a block that is a
+    multiple of 16); None where no route does."""
+    if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS or block <= 0 \
+            or block % 16:
+        return None
+    if dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS and block % _WGMMA_BLOCK == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def _pick_route(q, block, route):
+    """``block_sparse_route`` for q at ``block``, or the route ``route``
+    forces (``resolve_route``)."""
+    return resolve_route("block-sparse backward", block_sparse_route(q.dtype, q.shape[3], block),
+                         route, f"{q.dtype} at head_dim {q.shape[3]} and block {block}")
+
+
+def heavy_first(counts):
+    """The order in which the wgmma backward's grid takes a layout's rows:
+    the longest lists first, ties in row order (a stable sort), so that the
+    rows with the most tiles start in the first wave."""
+    return np.argsort(-np.asarray(counts, np.int64), kind="stable").astype(np.int32)
 
 
 def _active_lists(layout):
@@ -56,7 +98,9 @@ class SparseLayout:
     and its active lists on ``device``: ``fwd_idx``/``fwd_cnt`` (the kv
     blocks each q block attends, ascending, padded with the last) and
     ``bwd_idx``/``bwd_cnt`` (the same of the transposed layout: the q blocks
-    attending each kv block), int32, copied to the device once."""
+    attending each kv block), int32, copied to the device once; and
+    ``q_order``/``kv_order``, the wgmma backward's grid orders of the q and
+    kv blocks (``heavy_first`` of the two counts)."""
 
     def __init__(self, layout, block, device="cpu"):
         self.layout = np.asarray(layout, bool)
@@ -66,6 +110,7 @@ class SparseLayout:
         to = lambda a: torch.as_tensor(a, dtype=torch.int32).to(device)
         self.fwd_idx, self.fwd_cnt = to(fidx), to(fcnt)
         self.bwd_idx, self.bwd_cnt = to(bidx), to(bcnt)
+        self.q_order, self.kv_order = to(heavy_first(fcnt)), to(heavy_first(bcnt))
         self.device = self.fwd_idx.device  # "cuda" resolved to its index
 
 
@@ -277,16 +322,20 @@ def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_l
     return (out, lse) if return_lse else out
 
 
-def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=None):
+def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=None,
+                               _route=None):
     """(dq, dk, dv) of ``o = block_sparse_attention_fwd(q, k, v, lists)`` for
     the upstream gradient ``do``, from the forward's ``lse``.
 
     CPU tensors take ``block_sparse_attention_bwd_reference``. CUDA tensors
-    launch the dQ kernel (which also computes delta = rowsum(o * dO)) and
-    the dK/dV kernel, counted as one launch, on the current stream, or
-    raise on what they do not take: the forward's restrictions, o/do unlike
-    q, or a missing lse."""
+    launch the kernels of ``block_sparse_route`` (wmma: the dQ kernel, which
+    also computes delta = rowsum(o * dO), and the dK/dV kernel; wgmma: a
+    delta pass, the dQ and the dK/dV kernel), counted as one launch, on the
+    current stream, or raise on what they do not take: the forward's
+    restrictions, o/do unlike q, or a missing lse. ``_route`` forces a
+    route, for timing one against the other (``_pick_route``)."""
     _check_shapes(q, k, v, lists, causal)
+    route = _pick_route(q, lists.block, _route)
     if lse is None:
         raise ValueError("block-sparse backward needs the forward's lse "
                          "(block_sparse_attention_fwd(..., return_lse=True))")
@@ -310,21 +359,32 @@ def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=No
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     from ..op_builder import load_op
 
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     lib = load_op("block_sparse_attention")
+    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+               lse.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lists.fwd_idx.data_ptr(),
+            lists.fwd_cnt.data_ptr(), lists.bwd_idx.data_ptr(), lists.bwd_cnt.data_ptr())
+    shape = (_KERNEL_DTYPES[q.dtype], b, h, s_q, k.shape[1], d, lists.block,
+             (ctypes.c_longlong * 24)(*strides), float(scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ds_block_sparse_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lists.fwd_idx.data_ptr(), lists.fwd_cnt.data_ptr(), lists.bwd_idx.data_ptr(),
-            lists.bwd_cnt.data_ptr(), lists.max_a, lists.max_aq, _KERNEL_DTYPES[q.dtype], b, h,
-            s_q, k.shape[1], d, lists.block, (ctypes.c_longlong * 24)(*strides), float(scale),
-            int(bool(causal)), stream)
+        if route == "wgmma":
+            # lse * log2(e) rows, then delta rows (s_q is a multiple of 128)
+            scratch = torch.empty((2, b * h, s_q), dtype=torch.float32, device=q.device)
+            err = lib.ds_block_sparse_attention_bwd_wgmma(
+                *tensors, scratch.data_ptr(), *outs, lists.q_order.data_ptr(),
+                lists.kv_order.data_ptr(), lists.max_a, lists.max_aq, *shape, stream)
+        else:
+            delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+            err = lib.ds_block_sparse_attention_bwd(*tensors, delta.data_ptr(), *outs,
+                                                    lists.max_a, lists.max_aq, *shape, stream)
     if err:
-        raise RuntimeError(f"block_sparse_attention_bwd launch failed: cudaError_t {err}")
+        raise RuntimeError(f"block_sparse_attention_bwd launch failed ({route} route): "
+                           f"cudaError_t {err}")
     LAUNCH_COUNTS["block_sparse_attention_bwd"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] += 1
     return dq, dk, dv

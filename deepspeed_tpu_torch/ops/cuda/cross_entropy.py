@@ -7,6 +7,14 @@
 and the label's logit of ``x @ emb^T (+ bias)`` over the whole vocabulary,
 with the logits never stored.
 
+The source has two routes, fixed by ``ce_route(dtype, d)`` before the
+launch: ``wgmma`` (bf16 and fp16 with d a multiple of 64, every preset of the
+model registry: a TMA ring, wgmma, the logits and the running (max, sum) in
+registers, the vocabulary cut into ``ce_vocab_splits`` slices whose partials
+a second kernel combines) and ``wmma`` (fp32 and every other d the kernel
+takes: warp-level wmma or fp32 FMAs through shared memory). A failed build
+or launch of either raises; neither falls back to the other.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it computes ``fused_ce_forward_reference``, the plain fp32 math over vocab
 chunks, which the tests hold against the TPU kernel and ``chip_smoke.py``
@@ -15,11 +23,49 @@ holds the CUDA kernel against on the card.
 
 import torch
 
-from . import LAUNCH_COUNTS
+from . import LAUNCH_COUNTS, resolve_route
 
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# the TMA + wgmma route takes 16-bit types with d a multiple of 64
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_TILE_T, _WGMMA_TILE_V = 128, 256   # the wgmma kernel's token and vocab tiles
+_WGMMA_BLOCKS_PER_SM = 8
+
+
+def ce_route(dtype, d):
+    """The route the CE kernel takes for ``dtype`` and width ``d``: a pure
+    function of the two, decided before the launch. ``"wgmma"`` for
+    bf16/fp16 with d a multiple of 64, ``"wmma"`` for every other dtype and
+    d the kernel takes (fp32/fp16/bf16 with rows a multiple of 16 bytes);
+    None where no route does."""
+    if dtype not in _KERNEL_DTYPES or d <= 0:
+        return None
+    if d % (128 // torch.finfo(dtype).bits):
+        return None
+    if dtype in _WGMMA_DTYPES and d % 64 == 0:
+        return "wgmma"
+    return "wmma"
+
+
+def ce_vocab_splits(tokens, vocab, sms):
+    """The wgmma route's vocab slices: enough (token tile, slice) blocks for
+    about ``_WGMMA_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, so that the
+    grid fills the card in whole waves, and at most one slice per 256-column
+    vocab tile. T 12288 (96 token tiles), V 50304 on 132 SMs: 11 slices,
+    1056 blocks."""
+    n_t = -(-tokens // _WGMMA_TILE_T)
+    n_v = -(-vocab // _WGMMA_TILE_V)
+    want = -(-_WGMMA_BLOCKS_PER_SM * sms // n_t)
+    return max(1, min(n_v, want, 65535))
+
+
+def _pick_route(x, route):
+    """``ce_route`` for x, or the route ``route`` forces (``resolve_route``)."""
+    return resolve_route("fused CE", ce_route(x.dtype, x.shape[1]), route,
+                         f"{x.dtype} at d {x.shape[1]}")
 
 
 def _check_shapes(x, emb, labels, bias):
@@ -95,7 +141,7 @@ def _check_kernel_inputs(x, emb, labels, bias):
                              f"strides {t.stride()} at offset {t.data_ptr() % 16}")
 
 
-def fused_ce_forward(x, emb, labels, bias=None):
+def fused_ce_forward(x, emb, labels, bias=None, _route=None):
     """(lse, label_logit), fp32 [T] each, of ``x [T, d] @ emb [V, d]^T``
     (+ fp32 ``bias [V]``). ``emb`` is cast to x's dtype first, as the TPU
     kernel does, into row-major rows; ``labels`` must already be safe (ignored rows hold any id
@@ -105,8 +151,10 @@ def fused_ce_forward(x, emb, labels, bias=None):
     kernel on the current stream (labels as int32) or raise on what
     it does not take: dtypes other than fp32/fp16/bf16, d not a multiple of
     16 bytes, rows not contiguous and 16-byte aligned, tensors on other
-    devices."""
+    devices. ``_route`` forces a route, for timing one against the other
+    (``_pick_route``)."""
     _check_shapes(x, emb, labels, bias)
+    route = _pick_route(x, _route)
     if all(t.device.type == "cpu" for t in (x, emb, labels)) and (
             bias is None or bias.device.type == "cpu"):
         return fused_ce_forward_reference(x, emb, labels, bias)
@@ -126,13 +174,24 @@ def fused_ce_forward(x, emb, labels, bias=None):
     from ..op_builder import load_op
 
     lib = load_op("fused_ce_forward")
+    args = (x.data_ptr(), emb.data_ptr(), labels.data_ptr(),
+            bias.data_ptr() if bias is not None else None, lse.data_ptr(), lab.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ds_fused_ce_fwd(
-            x.data_ptr(), emb.data_ptr(), labels.data_ptr(),
-            bias.data_ptr() if bias is not None else None, lse.data_ptr(), lab.data_ptr(),
-            _KERNEL_DTYPES[x.dtype], tokens, vocab, d, x.stride(0), emb.stride(0), stream)
+        if route == "wgmma":
+            splits = ce_vocab_splits(
+                tokens, vocab, torch.cuda.get_device_properties(x.device).multi_processor_count)
+            # the slices' partial (max, sum, label logit) of every token
+            scratch = torch.empty((3, splits, tokens), dtype=torch.float32, device=x.device)
+            err = lib.ds_fused_ce_fwd_wgmma(
+                *args, scratch.data_ptr(), _KERNEL_DTYPES[x.dtype], tokens, vocab, d,
+                x.stride(0), emb.stride(0), splits, stream)
+        else:
+            err = lib.ds_fused_ce_fwd(*args, _KERNEL_DTYPES[x.dtype], tokens, vocab, d,
+                                      x.stride(0), emb.stride(0), stream)
     if err:
-        raise RuntimeError(f"fused_ce_forward launch failed: cudaError_t {err}")
+        raise RuntimeError(f"fused_ce_forward launch failed ({route} route): cudaError_t {err}")
     LAUNCH_COUNTS["fused_ce_forward"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS["fused_ce_forward_wgmma"] += 1
     return lse, lab

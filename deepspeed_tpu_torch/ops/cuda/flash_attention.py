@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from . import LAUNCH_COUNTS
+from . import LAUNCH_COUNTS, resolve_route
 
 NEG_INF = -1e30
 
@@ -42,7 +42,6 @@ _KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 # the routes: the TMA + wgmma kernels take 16-bit types at these head dims
-ROUTES = ("wgmma", "wmma")
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _WGMMA_HEAD_DIMS = (64, 128)
 _WGMMA_BWD_PAD = 128    # the wgmma backward's lse/delta rows: s_q rounded up to this
@@ -61,19 +60,10 @@ def attention_route(dtype, head_dim):
 
 
 def _pick_route(q, route):
-    """``route`` None takes ``attention_route``; a name forces that route (to
-    time one route against the other in one process) and raises where it
-    cannot take q's dtype and head_dim. ``wmma`` takes every shape the
-    kernels take."""
-    auto = attention_route(q.dtype, q.shape[3])
-    if route is None:
-        return auto
-    if route not in ROUTES:
-        raise ValueError(f"flash attention: unknown route {route!r} (routes {ROUTES})")
-    if auto is None or (route == "wgmma" and auto != "wgmma"):
-        raise ValueError(f"flash attention: route {route!r} does not take {q.dtype} at head_dim "
-                         f"{q.shape[3]} (its route is {auto!r})")
-    return route
+    """``attention_route`` for q, or the route ``route`` forces
+    (``resolve_route``)."""
+    return resolve_route("flash attention", attention_route(q.dtype, q.shape[3]), route,
+                         f"{q.dtype} at head_dim {q.shape[3]}")
 
 
 def _check_shapes(q, k, v, causal):

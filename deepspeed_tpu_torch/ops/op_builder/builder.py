@@ -162,7 +162,8 @@ class FlashAttentionBwdBuilder(CUDAOpBuilder):
 
 
 class FusedCEForwardBuilder(CUDAOpBuilder):
-    """``csrc/fused_ce_fwd.cu``: the streaming LM-head cross-entropy forward."""
+    """``csrc/fused_ce_fwd.cu``: the streaming LM-head cross-entropy forward,
+    both routes (``ds_fused_ce_fwd``: wmma/FMA; ``..._wgmma``: TMA + wgmma)."""
 
     NAME = "fused_ce_forward"
     SOURCES = ("fused_ce_fwd.cu",)
@@ -171,6 +172,9 @@ class FusedCEForwardBuilder(CUDAOpBuilder):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn = lib.ds_fused_ce_fwd
         fn.argtypes = [p] * 6 + [i] * 4 + [ll] * 2 + [p]
+        fn.restype = ctypes.c_int
+        fn = lib.ds_fused_ce_fwd_wgmma
+        fn.argtypes = [p] * 7 + [i] * 4 + [ll] * 2 + [i, p]
         fn.restype = ctypes.c_int
 
 
@@ -204,7 +208,8 @@ class QuantizedMatmulBuilder(CUDAOpBuilder):
 
 class BlockSparseAttentionBuilder(CUDAOpBuilder):
     """``csrc/block_sparse_attention.cu``: the block-sparse forward, and the
-    backward (dQ and dK/dV kernels, one call)."""
+    backward (dQ and dK/dV kernels, one call), both routes
+    (``ds_block_sparse_attention_bwd``: wmma/FMA; ``..._wgmma``: TMA + wgmma)."""
 
     NAME = "block_sparse_attention"
     SOURCES = ("block_sparse_attention.cu",)
@@ -217,4 +222,7 @@ class BlockSparseAttentionBuilder(CUDAOpBuilder):
         fwd.restype = ctypes.c_int
         bwd = lib.ds_block_sparse_attention_bwd
         bwd.argtypes = [p] * 14 + [i] * 9 + [strides, f, i, p]
+        bwd.restype = ctypes.c_int
+        bwd = lib.ds_block_sparse_attention_bwd_wgmma
+        bwd.argtypes = [p] * 16 + [i] * 9 + [strides, f, i, p]
         bwd.restype = ctypes.c_int

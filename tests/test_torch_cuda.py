@@ -921,3 +921,225 @@ def test_block_sparse_training_engine_on_the_card(cuda):
             "block_sparse_attention_fwd": cfg.n_layers, "block_sparse_attention_bwd": cfg.n_layers,
             "fused_ce_forward": 1, "flash_attention_fwd": 0, "flash_attention_bwd": 0}
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# -- the TMA + wgmma routes of the CE forward and the block-sparse backward --------
+
+_CE_ROUTE_SHAPES = [
+    # (tokens, d, vocab, bias, ignored rows)
+    (1000, 64, 50257, False, 0),            # ragged tokens, GPT-2's vocab, d 64
+    (12288 + 37, 1024, 129, True, 37),      # ragged past the training tokens, a 129 vocab
+    (1000, 4096, 1000, True, 0),            # Llama's width
+    (1000, 1024, 50257, False, 100),        # GPT-2 medium's width, ignored rows
+    (12288 + 37, 64, 1000, False, 0),
+]
+_CE_ROUTE_IDS = ["t1000-d64-v50257", "t12325-d1024-v129-bias-ignored", "t1000-d4096-v1000-bias",
+                 "t1000-d1024-v50257-ignored", "t12325-d64-v1000"]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", _CE_ROUTE_SHAPES, ids=_CE_ROUTE_IDS)
+def test_ce_routes_match_plain(cuda, shape, dtype, route):
+    """Both routes of the CE forward against the plain version at ragged
+    token counts and vocabularies, with and without a bias, with ignored
+    rows (made safe as ``fused_cross_entropy`` passes them), at d 64, 1024
+    and 4096: within 1e-5 + ``accumulation_bound``. The wgmma route is the
+    one ``ce_route`` picks; each launch counts on its route."""
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import (
+        accumulation_bound, ce_route, fused_ce_forward, fused_ce_forward_reference)
+
+    tokens, d, vocab, bias, ignored = shape
+    x, emb, labels, b = _ce_inputs(tokens, d, vocab, dtype, cuda, bias=bias)
+    labels[:ignored] = -100
+    safe = torch.where(labels != -100, labels, 0)
+    assert ce_route(dtype, d) == "wgmma"
+    before = dict(LAUNCH_COUNTS)
+    lse, lab = fused_ce_forward(x, emb, safe, b, _route=route)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_ce_forward"] == before["fused_ce_forward"] + 1
+    assert LAUNCH_COUNTS["fused_ce_forward_wgmma"] == (before["fused_ce_forward_wgmma"]
+                                                       + (route == "wgmma"))
+    ref_lse, ref_lab = fused_ce_forward_reference(x, emb, safe, b)
+    limit = 1e-5 + accumulation_bound(x, emb, ref_lse)
+    for name, got, ref in (("lse", lse, ref_lse), ("label_logit", lab, ref_lab)):
+        assert got.dtype == torch.float32 and got.shape == (tokens,)
+        worst = ((got - ref).abs() / limit).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {(got - ref).abs().max().item()}"
+
+
+def test_ce_wgmma_route_is_deterministic(cuda):
+    """Two launches of the wgmma CE give bitwise-equal outputs: the vocab
+    slices' partials are combined in slice order, with no atomics."""
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import fused_ce_forward
+
+    x, emb, labels, b = _ce_inputs(2000, 1024, 50257, torch.bfloat16, cuda, bias=True)
+    first = fused_ce_forward(x, emb, labels, b)
+    second = fused_ce_forward(x, emb, labels, b)
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
+
+
+def test_ce_forced_route_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.cross_entropy import fused_ce_forward
+
+    x, emb, labels, _ = _ce_inputs(64, 72, 256, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="route"):
+        fused_ce_forward(x, emb, labels, _route="wgmma")        # d 72
+    x, emb, labels, _ = _ce_inputs(64, 64, 256, torch.float32, cuda)
+    with pytest.raises(ValueError, match="route"):
+        fused_ce_forward(x, emb, labels, _route="wgmma")        # fp32
+
+
+_SPARSE_PATTERNS = ["dense", "fixed", "bigbird", "bslongformer", "variable"]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("mode", ["causal", "causal-sq<skv", "noncausal"])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("pattern", _SPARSE_PATTERNS)
+def test_block_sparse_bwd_routes_match_plain(cuda, pattern, block, mode, dtype, d):
+    """Both routes of the block-sparse backward against the plain version
+    for every pattern at blocks 128 and 256, causal (s_q = s_kv and s_q <
+    s_kv) and not: within 1e-5 + ``bwd_rounding_bound``. The wgmma route is
+    the one ``block_sparse_route`` picks; each launch counts on its route."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd_reference, block_sparse_route, bwd_rounding_bound)
+
+    causal = mode != "noncausal"
+    s_kv = 8 * block
+    s_q = s_kv - block if mode == "causal-sq<skv" else s_kv
+    lists, q, k, v, do = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, cuda)
+    assert block_sparse_route(dtype, d, block) == "wgmma"
+    o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal, return_lse=True)
+    o = o.to(dtype)
+    refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=causal)
+    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, lists, causal=causal)
+    for route in ("wgmma", "wmma"):
+        before = dict(LAUNCH_COUNTS)
+        grads = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=causal,
+                                           _route=route)
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["block_sparse_attention_bwd"] == (
+            before["block_sparse_attention_bwd"] + 1)
+        assert LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] == (
+            before["block_sparse_attention_bwd_wgmma"] + (route == "wgmma"))
+        for i, (name, g, r) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
+            assert g.dtype == dtype and g.shape == r.shape, name
+            diff = (g.float() - r.float()).abs()
+            worst = (diff / (1e-5 + bounds[i])).max().item()
+            assert worst <= 1.0, (f"{route} {name}: max abs err {diff.max().item()}, "
+                                  f"{worst:.2f} of the limit")
+
+
+def test_block_sparse_wgmma_bwd_zeroes_unattended_kv_blocks(cuda):
+    """A non-causal 128-token layout in which kv blocks 1 and 2 are attended
+    by no query, and q block 2 attends nothing: their dK, dV and dQ come
+    back zero on the wgmma route, the rest within its bound."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd_reference, bwd_rounding_bound)
+
+    layout = np.zeros((4, 4), bool)
+    layout[:, 0] = True
+    layout[3, 3] = True
+    layout[2, :] = False
+    lists = SparseLayout(layout, 128, cuda)
+    q, k, v = _qkv(1, 512, 512, 2, 2, 64, torch.bfloat16, cuda)
+    do = torch.ones_like(q)
+    o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=False, return_lse=True)
+    o = o.to(q.dtype)
+    before = LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"]
+    dq, dk, dv = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=False)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] == before + 1
+    assert (dk[:, 128:384] == 0).all() and (dv[:, 128:384] == 0).all()
+    assert (dq[:, 256:384] == 0).all()
+    assert dv[:, :128].abs().sum() > 0 and dv[:, 384:].abs().sum() > 0
+    refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=False)
+    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, lists, causal=False)
+    for g, r, bnd in zip((dq, dk, dv), refs, bounds):
+        assert ((g.float() - r.float()).abs() <= 1e-5 + bnd).all()
+
+
+def test_block_sparse_wgmma_bwd_skips_blocks_past_the_diagonal(cuda):
+    """A causal layout that keeps every block, those wholly past the causal
+    diagonal too (the patterns' causal rule never lists them; the kernel
+    does not rely on it): the wgmma backward skips them and holds the plain
+    version, which masks them."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+        block_sparse_attention_fwd_reference, bwd_rounding_bound)
+
+    lists = SparseLayout(np.ones((4, 4), bool), 128, cuda)
+    for s_q in (512, 384):
+        l = lists if s_q == 512 else SparseLayout(np.ones((3, 4), bool), 128, cuda)
+        q, k, v = _qkv(1, s_q, 512, 2, 2, 128, torch.float16, cuda)
+        do = torch.randn_like(q)
+        o, lse = block_sparse_attention_fwd_reference(q, k, v, l, causal=True, return_lse=True)
+        o = o.to(q.dtype)
+        grads = block_sparse_attention_bwd(q, k, v, o, lse, do, l, causal=True, _route="wgmma")
+        refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, l, causal=True)
+        bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, l, causal=True)
+        for g, r, bnd in zip(grads, refs, bounds):
+            assert ((g.float() - r.float()).abs() <= 1e-5 + bnd).all()
+
+
+def test_block_sparse_wgmma_bwd_is_deterministic(cuda):
+    """Two launches of the wgmma backward give bitwise-equal gradients
+    (every output tile is owned by one block; no atomics)."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_fwd)
+
+    lists, q, k, v, do = _sparse_case("fixed", 128, True, 1024, 1024, 2, 4, 64, torch.bfloat16,
+                                      cuda)
+    o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
+    first = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True)
+    second = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True)
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
+
+
+def test_block_sparse_wgmma_bwd_under_autograd(cuda, monkeypatch):
+    """``BlockSparseAttention`` at 128-token blocks under autograd (whose
+    backward runs on a thread of its own, where the TMA descriptors are
+    encoded): one wgmma backward launch, the plain versions never called,
+    and the gradients those of the wrapper called directly (bitwise)."""
+    import deepspeed_tpu_torch.ops.cuda.block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import (BlockSparseAttention,
+                                                          FixedSparsityConfig)
+
+    attn = BlockSparseAttention(FixedSparsityConfig(block=128), 1024, device=cuda)
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 1024, 1024, 4, 4, 128, torch.bfloat16, cuda))
+    do = torch.randn(2, 1024, 4, 128, device=cuda).to(torch.bfloat16)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(bsa, "block_sparse_attention_fwd_reference", plain)
+    monkeypatch.setattr(bsa, "block_sparse_attention_bwd_reference", plain)
+    before = dict(LAUNCH_COUNTS)
+    attn(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    delta = {n: LAUNCH_COUNTS[n] - before[n] for n in LAUNCH_COUNTS}
+    assert delta["block_sparse_attention_bwd"] == delta["block_sparse_attention_bwd_wgmma"] == 1
+    o, lse = bsa.block_sparse_attention_fwd(q.detach(), k.detach(), v.detach(), attn.lists,
+                                            return_lse=True)
+    for g, w in zip((q.grad, k.grad, v.grad),
+                    bsa.block_sparse_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                                                   do, attn.lists)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_block_sparse_forced_route_refuses_what_it_does_not_take(cuda):
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_fwd)
+
+    for block, dtype, d in ((64, torch.bfloat16, 64), (128, torch.float32, 64),
+                            (128, torch.bfloat16, 80)):
+        lists, q, k, v, do = _sparse_case("fixed", block, True, 512, 512, 1, 2, d, dtype, cuda)
+        o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
+        with pytest.raises(ValueError, match="route"):
+            block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")

@@ -211,19 +211,29 @@ def test_builder_signature_sees_the_included_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(ALL_OPS["flash_attention_fwd"]().csrc_dir, csrc)
     builders = {}
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul",
-                 "fused_ce_forward"):
+    hopper = ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul",
+              "fused_ce_forward", "block_sparse_attention")
+    for name in hopper + ("paged_flash_decode",):
         builders[name] = ALL_OPS[name]()
         builders[name].csrc_dir = str(csrc)
     shared = csrc / "sm90_utils.cuh"
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul"):
+    for name in hopper:
         assert str(shared) in builders[name].headers(), name
+    # the backward kernels both flash routes' libraries share, and through it sm90_utils
+    for name in ("flash_attention_bwd", "block_sparse_attention"):
+        assert str(csrc / "flash_bwd_sm90.cuh") in builders[name].headers(), name
     before = {name: b._signature() for name, b in builders.items()}
     shared.write_text(shared.read_text() + "\n// an edit\n")
     after = {name: b._signature() for name, b in builders.items()}
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "quantized_matmul"):
+    for name in hopper:
         assert after[name] != before[name], name
-    assert after["fused_ce_forward"] == before["fused_ce_forward"]
+    assert after["paged_flash_decode"] == before["paged_flash_decode"]
+    bwd = csrc / "flash_bwd_sm90.cuh"
+    bwd.write_text(bwd.read_text() + "\n// an edit\n")
+    again = {name: b._signature() for name, b in builders.items()}
+    for name in hopper:
+        assert (again[name] != after[name]) == (name in ("flash_attention_bwd",
+                                                         "block_sparse_attention")), name
     # a header that a header includes counts too
     (csrc / "inner.cuh").write_text("// v1\n")
     shared.write_text('#include "inner.cuh"\n' + shared.read_text())

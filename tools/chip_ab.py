@@ -4,14 +4,16 @@
     python3 tools/chip_ab.py BASE CHANGE      # two checkout roots, e.g. git archive copies
 
 Runs the generate path (``chip_smoke.py`` phase 4: full Llama-7B bf16,
-``generate()`` over its requests) and the training path (phase 6: full GPT-2
-medium, b12 x s1024 bf16, ``train_batch()``) of each root through that
-root's own ``chip_smoke.py`` functions and kernels, one process per run, in
-the order BASE, CHANGE, CHANGE, BASE, so that drift of the card cancels. Each
-run builds only the kernels these paths launch (the flash forward and
-backward and the CE forward), from its root's sources. Prints one JSON line
-per run, then a summary line: each root's warm prefill ms per request and
-median step ms (the mean of its two runs) and CHANGE less BASE.
+``generate()`` over its requests) and both training paths (phase 6: full
+GPT-2 medium, b12 x s1024 bf16, ``train_batch()`` with flash attention;
+phase 8: the same with block-sparse attention, fixed pattern of 128-token
+blocks) of each root through that root's own ``chip_smoke.py`` functions and
+kernels, one process per run, in the order BASE, CHANGE, CHANGE, BASE, so
+that drift of the card cancels. Each run builds only the kernels these paths
+launch (the flash forward and backward, the CE forward and the block-sparse
+kernels), from its root's sources. Prints one JSON line per run, then a
+summary line: each root's warm prefill ms per request and median step ms of
+each training path (the mean of its two runs) and CHANGE less BASE.
 
     python3 tools/chip_ab.py --measure ROOT   # one run (what the driver starts)
 
@@ -36,8 +38,10 @@ def measure(root):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch.models.transformer import _block_sparse_attn
+
     builders = [ALL_OPS[n]() for n in ("flash_attention_fwd", "flash_attention_bwd",
-                                       "fused_ce_forward")]
+                                       "fused_ce_forward", "block_sparse_attention")]
     for b, started in [(b, b.start()) for b in builders]:
         b.finish(started)
 
@@ -47,15 +51,22 @@ def measure(root):
     del eng
     torch.cuda.empty_cache()
     cfg = cs.train_model_config()
-    checked = {"flash": {(cs.TRAIN_BATCH, cs.TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim)},
-               "ce": {(cs.TRAIN_BATCH * cs.TRAIN_SEQ, cfg.d_model, cfg.vocab_size)},
-               "block_sparse": set()}
+    sparse_cfg = cs.train_sparse_model_config()
+    layout = _block_sparse_attn(sparse_cfg, cs.TRAIN_SEQ, torch.device("cuda")).layout
+    shape = (cs.TRAIN_BATCH, cs.TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
+    checked = {"flash": {shape}, "block_sparse": {shape + (layout.tobytes(),)},
+               "ce": {(cs.TRAIN_BATCH * cs.TRAIN_SEQ, cfg.d_model, cfg.vocab_size)}}
     training = cs.phase_training(torch, checked)
+    torch.cuda.empty_cache()
+    sparse = cs.phase_training(torch, checked, sparse=True)
     return {"root": root, "card": torch.cuda.get_device_name(0),
             "prefill_ms": {r["request"]: r["prefill_ms"] for r in requests},
             "generate_launches": launches, "step_ms": training["step_ms"],
             "step_ms_median": training["step_ms_median"],
-            "train_launches": training["launches"]}
+            "train_launches": training["launches"],
+            "sparse_step_ms": sparse["step_ms"],
+            "sparse_step_ms_median": sparse["step_ms_median"],
+            "sparse_train_launches": sparse["launches"]}
 
 
 def main(argv):
@@ -86,14 +97,16 @@ def main(argv):
         return sum(vals) / len(vals)
 
     summary = {"card": smi.stdout.strip(), "order": [r["label"] for r in runs]}
+    steps = ("step_ms_median", "sparse_step_ms_median")
     for label in ("base", "change"):
         summary[label] = {
-            "step_ms_median": mean(label, lambda r: r["step_ms_median"]),
-            "step_ms_medians": [r["step_ms_median"] for r in runs if r["label"] == label],
+            **{k: mean(label, lambda r, k=k: r[k]) for k in steps},
+            **{k.replace("median", "medians"): [r[k] for r in runs if r["label"] == label]
+               for k in steps},
             "prefill_ms": {req: mean(label, lambda r, q=req: r["prefill_ms"][q])
                            for req in runs[0]["prefill_ms"]}}
     summary["change_less_base"] = {
-        "step_ms_median": summary["change"]["step_ms_median"] - summary["base"]["step_ms_median"],
+        **{k: summary["change"][k] - summary["base"][k] for k in steps},
         "prefill_ms": {q: summary["change"]["prefill_ms"][q] - summary["base"]["prefill_ms"][q]
                        for q in summary["base"]["prefill_ms"]}}
     print(json.dumps({"ab_summary": summary}), flush=True)
