@@ -13,11 +13,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      call computing the same function as a yardstick (never used by the port);
      the flash forward and backward at the main paths' shapes on their TMA +
      wgmma route (bf16 at head_dim 128 and 64), the CE forward and the
-     block-sparse backward on theirs, each case also held and timed through
-     the old wmma route in turns (``_route="wmma"``); the
+     block-sparse forward and backward on theirs, each case also held and
+     timed through the old wmma route in turns (``_route="wmma"``); the
      quantized matmul (int8, int4) at Llama-7B's linears for every token
      count phase 7 runs (a TMA + wgmma route case also through the old wmma
-     route, in turns), and the paged decode on an int8 pool; the attention
+     route, an mma decode case through the old split-k GEMV, in turns), and
+     the paged decode on an int8 pool; the attention
      kernels (flash forward with lse, flash backward, block-sparse forward
      and backward) at head_dim 32, 80, 96 and 256;
   3. the card against the CPU port: Llama-7B width with 2 layers in fp32, the
@@ -50,15 +51,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``serve()`` of phase 5's traffic as phase 5 runs it; then ``quant`` int4
      with ``generate()`` over the same requests. Each forward launches 7
      quantized matmuls per layer (a prefill's through the TMA + wgmma route,
-     counted by route), each decode step one int8 paged decode per layer and
+     a decode step's through the mma decode kernel, counted by route), each
+     decode step one int8 paged decode per layer and
      none of the 16-bit pool's; a quantized matmul shape that phase 2 did not
      check fails the run;
   8. the block-sparse training path: phase 6's model and config with
      ``attention_impl="block_sparse"`` (the fixed pattern of 128-token blocks,
      4 local and 1 global), 2 warm-up and 8 timed ``train_batch`` steps and
      one ``eval_batch``, with the launch counts read around every step (24
-     block-sparse forward, 24 backward and 1 CE launch, the backward and CE
-     on their wgmma routes, no flash launch) and
+     block-sparse forward, 24 backward and 1 CE launch, all on their wgmma
+     routes, no flash launch) and
      one more step under the profiler. Phase 2 holds the block-sparse
      forward and backward against their plain versions at its layers, at
      the same tokens as b 3 x s 4096 (beside the dense flash kernels) and at
@@ -86,6 +88,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, bf16/fp16 (H100 SXM data sheet)
 H100_FP32_FLOPS = 67e12    # fp32 without tensor cores
 H100_BYTES = 3.35e12       # HBM3 bytes/s
+SLEEP_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep's cycles a second, at most (SM clock <= 1.98 GHz)
 
 # |kernel - plain| per element: bf16 within ATOL_16 + rounding_bound (what
 # rounding P and the outputs to bf16 explains, ops/cuda/flash_attention.py);
@@ -139,13 +142,22 @@ def log(msg):
 
 
 def time_ms(fn, iters):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
+    events). The calls are queued behind a sleep kernel that outlasts their
+    enqueue, so that the events time the device's work even where a call's
+    Python takes longer than its kernels (a wrapper's tens of µs against a
+    decode kernel's)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2e-3 + 2 * iters * host_s)))
     start.record()
     for _ in range(iters):
         fn()
@@ -662,10 +674,14 @@ def phase_serving(torch, eng, checked_shapes, paged_kernel="paged_flash_decode",
     if qmm_kernel is not None and launches[qmm_kernel] != 7 * n_layers * (dispatches + SERVE_N):
         raise AssertionError(f"{qmm_kernel} launches {launches[qmm_kernel]} != 7 x {n_layers} x "
                              f"({dispatches} decode steps + {SERVE_N} prefills)")
-    # every prefill linear (m > 16) takes the TMA + wgmma route, no decode step's
+    # every prefill linear (m > 16) takes the TMA + wgmma route, every decode
+    # step's (m <= 8 slots) the mma decode kernel
     if qmm_kernel is not None and launches[f"{qmm_kernel}_wgmma"] != 7 * n_layers * SERVE_N:
         raise AssertionError(f"{qmm_kernel}_wgmma launches {launches[f'{qmm_kernel}_wgmma']} "
                              f"!= 7 x {n_layers} x {SERVE_N} prefills")
+    if qmm_kernel is not None and launches[f"{qmm_kernel}_mma"] != 7 * n_layers * dispatches:
+        raise AssertionError(f"{qmm_kernel}_mma launches {launches[f'{qmm_kernel}_mma']} "
+                             f"!= 7 x {n_layers} x {dispatches} decode steps")
     if launches["flash_attention_fwd"] != n_layers * (SERVE_N - hits):
         raise AssertionError(f"flash launches {launches['flash_attention_fwd']} != {n_layers} x "
                              f"{SERVE_N - hits} full prefills")
@@ -1493,6 +1509,8 @@ def phase_sparse_kernels(torch, F):
         # the wmma kernels at the same shape hold the plain version too
         old_grads = (block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal,
                                                 _route="wmma") if route == "wgmma" else None)
+        old_fwd = (block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True,
+                                              _route="wmma") if route == "wgmma" else None)
         torch.cuda.synchronize()
         label = f"block-sparse {name} {dtype}"
         if dtype == torch.float32:
@@ -1507,6 +1525,11 @@ def phase_sparse_kernels(torch, F):
         use = check_limit(f"{label} fwd", (o.float() - ref.float()).abs(), limit, tol)
         lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
                               1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+        if old_fwd is not None:
+            check_limit(f"{label} fwd (wmma route)", (old_fwd[0].float() - ref.float()).abs(),
+                        limit, tol)
+            check_limit(f"{label} lse (wmma route)", (old_fwd[1] - ref_lse).abs(),
+                        1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
         errs, uses = {}, {}
         for i, gname in enumerate(("dq", "dk", "dv")):
             diff = (grads[i].float() - refs[i].float()).abs()
@@ -1522,11 +1545,11 @@ def phase_sparse_kernels(torch, F):
                       density=attn.density, tolerance=tol)
         f = dict(common, max_abs_err=(o.float() - ref.float()).abs().max().item(),
                  lse_max_abs_err=(lse - ref_lse).abs().max().item(), limit_use=use,
-                 lse_limit_use=lse_use)
+                 lse_limit_use=lse_use, kernel_route=route, old_route_ms=None)
         g = dict(common, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
                  limit_use=max(uses.values()), limit_use_by_grad=uses, kernel_route=route,
                  old_route_ms=None)
-        del limit, limits, grads, refs, old_grads
+        del limit, limits, grads, refs, old_grads, old_fwd
         if (name, dtype) in {(t[0], t[-1]) for t in timed}:
             kept = kept_pairs(attn.layout, block, s, s, causal)
             peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
@@ -1539,8 +1562,14 @@ def phase_sparse_kernels(torch, F):
                 r.update(kept_elements_per_head=kept, flops=flops, bytes=n_bytes,
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops >= t_bytes else "bytes")
-            f["ms"] = time_ms(lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
-                                                                 return_lse=True), 20)
+            fwd = lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
+                                                     return_lse=True)
+            if route == "wgmma":
+                f["ms"], f["old_route_ms"] = route_turns(
+                    fwd, lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
+                                                            return_lse=True, _route="wmma"), 20)
+            else:
+                f["ms"] = time_ms(fwd, 20)
             f["plain_ms"] = time_ms(lambda: block_sparse_attention_fwd_reference(
                 q, k, v, lists, causal=causal, return_lse=True), 3)
             kernel = lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
@@ -1579,7 +1608,7 @@ def phase_sparse_kernels(torch, F):
                 was = (f" (wmma route {r['old_route_ms']:.4f} ms)"
                        if r.get("old_route_ms") is not None else "")
                 log(f"  block-sparse {part} {name:10s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
-                    f"({r['limit_use']:.2f} of the limit)  {r.get('kernel_route', 'wmma')} "
+                    f"({r['limit_use']:.2f} of the limit)  {r['kernel_route']} "
                     f"{r['ms']:.4f} ms{was}  plain "
                     f"{r['plain_ms']:.4f} ms  sdpa+mask {r['library_ms']:.4f} ms  bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s"
@@ -1592,8 +1621,8 @@ def phase_sparse_kernels(torch, F):
     n_wgmma = sum(r["kernel_route"] == "wgmma" for r in bwd_out)
     log(f"  block-sparse breadth: {len(breadth)} cases (5 patterns x blocks 16/32/64/128 x "
         f"causal/non-causal x bf16/fp16/fp32), forward, lse, dq, dk, dv each within its "
-        f"limit (worst {worst:.2f} of a limit); {n_wgmma} backward cases on the wgmma route, "
-        f"each also held on the wmma route")
+        f"limit (worst {worst:.2f} of a limit); {n_wgmma} forward and backward cases on the "
+        f"wgmma route, each also held on the wmma route")
     torch.cuda.empty_cache()
     return {"fwd": fwd_out, "bwd": bwd_out}, checked
 
@@ -1706,10 +1735,11 @@ def phase_training(torch, checked, sparse=False):
         f"compute) in {time.perf_counter() - t0:.3f} s")
     batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size,
                                                             (TRAIN_BATCH, TRAIN_SEQ))}
-    # every CE launch, flash launch and block-sparse backward launch of the
-    # step on the TMA + wgmma route
+    # every CE launch, flash launch and block-sparse launch of the step on
+    # the TMA + wgmma route
     if sparse:
         expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
+                    "block_sparse_attention_fwd_wgmma": L,
                     "block_sparse_attention_bwd_wgmma": L, "fused_ce_forward": 1,
                     "fused_ce_forward_wgmma": 1, "flash_attention_fwd": 0,
                     "flash_attention_bwd": 0}
@@ -1827,9 +1857,12 @@ def phase_qmm_kernels(torch, main_ms):
     of 128, an odd group). Each case has the kernel's time, the plain
     version's, the bound and ``torch.matmul`` on the weight dequantized
     beforehand (the unquantized model's GEMM) as the yardstick; a case of
-    the TMA + wgmma route is also timed through the old wmma route, in
-    turns (old, new, new, old), and its time is the mean of its two turns."""
-    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (dequantized_weight,
+    the TMA + wgmma route is also timed through the old wmma route, and one
+    of the mma decode route through the old split-k GEMV, in turns (old,
+    new, new, old), its time the mean of its two turns; the old route's
+    result is held to the same limit."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (OLD_ROUTES,
+                                                               dequantized_weight,
                                                                kernel_route,
                                                                quantized_matmul,
                                                                quantized_matmul_reference,
@@ -1869,9 +1902,12 @@ def phase_qmm_kernels(torch, main_ms):
             w_deq = dequantized_weight(q, scale, bits).to(dtype)
             route = kernel_route(m, n, k, group, dtype, bits)
             old_route_ms = None
-            if route == "wgmma":
-                kernel_ms, old_route_ms = route_turns(
-                    kern, lambda: quantized_matmul(x, q, scale, bits=bits, route="wmma"), 20)
+            old = OLD_ROUTES.get(route)
+            if old is not None:
+                old_kern = lambda: quantized_matmul(x, q, scale, bits=bits, route=old)
+                check_limit(f"{name} ({old} route)", (old_kern().float() - ref.float()).abs(),
+                            limit, tol)
+                kernel_ms, old_route_ms = route_turns(kern, old_kern, 20)
             else:
                 kernel_ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3)
@@ -1885,14 +1921,14 @@ def phase_qmm_kernels(torch, main_ms):
             r = dict(case=f"m{m}-k{k}-n{n}-g{group}", bits=bits, dtype=str(dtype).split(".")[1],
                      m=m, k=k, n=n, group=group, main_path=(k, n) in LLAMA_LINEARS
                      and dtype == torch.bfloat16 and group == 64,
-                     route=route, max_abs_err=diff.max().item(), tolerance=tol,
+                     route=route, old_route=old, max_abs_err=diff.max().item(), tolerance=tol,
                      limit_use=use, ms=kernel_ms, old_route_ms=old_route_ms,
                      plain_ms=plain_ms, library_ms=library_ms,
                      bound_ms=max(t_bytes, t_ops) * 1e3,
                      bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=n_bytes,
                      flops=flops, gb_per_s=n_bytes / kernel_ms / 1e6,
                      tflops=flops / kernel_ms / 1e9)
-            was = "" if old_route_ms is None else f" (wmma route {old_route_ms:.4f} ms)"
+            was = "" if old_route_ms is None else f" ({old} route {old_route_ms:.4f} ms)"
             log(f"  {name:44s} err {r['max_abs_err']:.2e} ({use:.2f} of the limit)  {route} "
                 f"{kernel_ms:.4f} ms{was}  plain {plain_ms:.4f} ms  matmul {library_ms:.4f} ms  "
                 f"bound "
@@ -2184,11 +2220,17 @@ def phase_quant_path(torch, checked_qmm, bf16_pool_bytes):
             if gen_launches[f"quantized_matmul_{label}"] != per_forward * n_forwards:
                 raise AssertionError(f"{label}: generate launches {gen_launches}")
             # each generate() runs one prefill forward (m = batch x bucket > 16):
-            # its linears, and only they, take the TMA + wgmma route
+            # its linears, and only they, take the TMA + wgmma route; every
+            # decode forward's (m = batch <= 16) the mma decode kernel
             if gen_launches[f"quantized_matmul_{label}_wgmma"] != per_forward * len(requests):
                 raise AssertionError(f"{label}: {gen_launches[f'quantized_matmul_{label}_wgmma']} "
                                      f"wgmma-route launches, expected {per_forward} x "
                                      f"{len(requests)} prefills")
+            decodes = per_forward * (MAX_NEW - 1) * len(requests)
+            if gen_launches[f"quantized_matmul_{label}_mma"] != decodes:
+                raise AssertionError(f"{label}: {gen_launches[f'quantized_matmul_{label}_mma']} "
+                                     f"mma-route launches, expected {decodes} (every decode "
+                                     f"forward's linears)")
             # the same prefills with the linears through the old wmma route,
             # in turns (old, new, new, old; 2 new tokens, prefill ms read)
             # (2 new tokens where the prompt bucket stays the one MAX_NEW gives,
@@ -2386,13 +2428,23 @@ def main():
             if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
                 raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                      f"{by_path[path][name]} {name} launches on the wgmma route")
-    # phases 6 and 8: every CE launch, and every block-sparse backward launch,
-    # on the TMA + wgmma route
+    # phases 6 and 8: every CE launch, and every block-sparse launch, on the
+    # TMA + wgmma route
     for path, name in (("train", "fused_ce_forward"), ("train_block_sparse", "fused_ce_forward"),
+                       ("train_block_sparse", "block_sparse_attention_fwd"),
                        ("train_block_sparse", "block_sparse_attention_bwd")):
         if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
             raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                  f"{by_path[path][name]} {name} launches on the wgmma route")
+    # phase 7: every quantized matmul launch on a Hopper route (prefills on
+    # wgmma, decode steps on mma)
+    for path, bits in (("quant_generate_int8", 8), ("quant_serve_int8", 8),
+                       ("quant_generate_int4", 4)):
+        name = f"quantized_matmul_int{bits}"
+        if by_path[path][f"{name}_wgmma"] + by_path[path][f"{name}_mma"] != by_path[path][name]:
+            raise AssertionError(f"{path}: {by_path[path][name]} {name} launches, "
+                                 f"{by_path[path][f'{name}_wgmma']} on wgmma and "
+                                 f"{by_path[path][f'{name}_mma']} on mma")
 
     # the headline is the longest prefill of phases 4 and 5; "cases" holds every shape
     b_main, s_main = max(main_shapes, key=lambda bs: bs[1])
@@ -2416,12 +2468,18 @@ def main():
     qmm_prefill = {bits: next(c for c in qmm_cases if c["bits"] == bits and c["main_path"]
                               and (c["m"], c["k"], c["n"]) == (2048, 4096, 11008))
                    for bits in (8, 4)}
+    qmm_decode = {bits: {c["m"]: {key: c[key] for key in ("ms", "old_route_ms", "library_ms",
+                                                          "bound_ms", "max_abs_err")}
+                         for c in qmm_cases if c["bits"] == bits and c["main_path"]
+                         and (c["k"], c["n"]) == (4096, 11008) and c["route"] == "mma"}
+                  for bits in (8, 4)}
     paged_int8_main = next(c for c in paged_int8_cases
                            if c["main_path"] and c["dtype"] == "bfloat16")
     sparse_main = {part: next(c for c in sparse_cases[part] if c["main_path"])
                    for part in ("fwd", "bwd")}
-    long_bwd = next(c for c in sparse_cases["bwd"]
-                    if c["case"] == "long-s4096" and c["dtype"] == "bfloat16")
+    long_case = {part: next(c for c in sparse_cases[part]
+                            if c["case"] == "long-s4096" and c["dtype"] == "bfloat16")
+                 for part in ("fwd", "bwd")}
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2522,9 +2580,18 @@ def main():
         "launches_by_path": {p: c[f"quantized_matmul_int{bits}"] for p, c in by_path.items()},
         "launches_by_route": {
             "wgmma": sum(c[f"quantized_matmul_int{bits}_wgmma"] for c in by_path.values()),
+            "mma": sum(c[f"quantized_matmul_int{bits}_mma"] for c in by_path.values()),
             "gemv_and_wmma": sum(c[f"quantized_matmul_int{bits}"]
                                  - c[f"quantized_matmul_int{bits}_wgmma"]
+                                 - c[f"quantized_matmul_int{bits}_mma"]
                                  for c in by_path.values())},
+        "kernel_route": qmm_main[bits]["route"],
+        "old_route_ms": qmm_main[bits]["old_route_ms"],
+        "routes": "mma: the decode kernel (m <= 16; mma.sync on weights dequantized in "
+                  "registers), wgmma: TMA + wgmma (m > 16), both for bf16 with k % 64, n % 16 "
+                  "and a group of 8/16/32 or a multiple of 64; gemv and wmma: the rest; "
+                  "old_route_ms: the split-k GEMV forced at the same shape, in turns",
+        "decode_by_m": qmm_decode[bits],
         "max_abs_err": qmm_main[bits]["max_abs_err"],
         "ms": qmm_main[bits]["ms"],
         "plain_ms": qmm_main[bits]["plain_ms"],
@@ -2532,7 +2599,8 @@ def main():
         "bound_by": qmm_main[bits]["bound_by"],
         "library_ms": qmm_main[bits]["library_ms"],
         "shape": "m=8 k=4096 n=11008 group 64 bf16 (the serving decode's gate/up "
-                 "projection); library: torch.matmul on the weight dequantized to bf16",
+                 "projection), mma route; library: torch.matmul on the weight dequantized to "
+                 "bf16",
         "prefill_shape": "m=2048 k=4096 n=11008 group 64 bf16 (the 2048-token prefill's "
                          "gate/up projection), TMA + wgmma route; old route: the wmma kernel",
         "prefill_ms": qmm_prefill[bits]["ms"],
@@ -2567,15 +2635,15 @@ def main():
         "replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:"
                     + ("335" if part == "fwd" else "363"),
         **({} if part == "fwd" else
-           {"also_replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:403",
-            "launches_by_route": by_route("block_sparse_attention_bwd"),
-            "kernel_route": head["kernel_route"], "old_route_ms": head["old_route_ms"],
-            "routes": "wgmma: the flash backward's TMA + wgmma kernels over the layout's "
-                      "lists, bf16/fp16 at head_dim 64 and 128 with blocks a multiple of 128; "
-                      "wmma: the rest; old_route_ms: the wmma kernels forced at the same shape, "
-                      "in turns",
-            "long_s4096": {k: long_bwd[k] for k in ("ms", "old_route_ms", "library_ms",
-                                                    "flash_ms", "bound_ms", "max_abs_err")}}),
+           {"also_replaces": "deepspeed_tpu/ops/pallas/block_sparse_attention.py:403"}),
+        "launches_by_route": by_route(f"block_sparse_attention_{part}"),
+        "kernel_route": head["kernel_route"], "old_route_ms": head["old_route_ms"],
+        "routes": f"wgmma: the flash {'forward' if part == 'fwd' else 'backward'}'s TMA + "
+                  "wgmma kernels over the layout's lists, bf16/fp16 at head_dim 64 and 128 with "
+                  "blocks a multiple of 128; wmma: the rest; old_route_ms: the wmma kernels "
+                  "forced at the same shape, in turns",
+        "long_s4096": {k: long_case[part][k] for k in ("ms", "old_route_ms", "library_ms",
+                                                       "flash_ms", "bound_ms", "max_abs_err")},
         "launches": sum(c[f"block_sparse_attention_{part}"] for c in by_path.values()),
         "launches_by_path": {p: c[f"block_sparse_attention_{part}"] for p, c in by_path.items()},
         "max_abs_err": head["max_abs_err"],

@@ -50,21 +50,23 @@
 // 989 TFLOP/s, while q, k, v, o (and dO, lse, dq, dk, dv) take 0.030 / 0.060
 // ms at 3.35 TB/s: bytes bound it.
 //
-// The backward has two routes, fixed by the caller before the launch
+// Every kernel has two routes, fixed by the caller before the launch
 // (ops/cuda/block_sparse_attention.py block_sparse_route): the wgmma route
 // (bf16 / fp16 at head_dim 64 and 128 with a block that is a multiple of 128,
-// the training layout's; ds_block_sparse_attention_bwd_wgmma at the end of
-// this file) runs the flash backward's TMA + wgmma kernels
-// (csrc/flash_bwd_sm90.cuh) with a list-driven tile schedule: a 128-token
-// layout block is exactly one 128-row q tile of its dQ kernel and one 128-row
-// kv tile of its dK/dV kernel, so the dQ block walks the 64-row halves of its
-// list's kv blocks and the dK/dV block the q tiles of its transposed list's
-// q blocks; the producer thread reads the list and issues the TMA loads from
-// it, the consumers only count tiles and mask the diagonal. The grid takes
-// the layout rows longest list first (SparseLayout's orders). The forward,
-// and the backward's other shapes (fp32, head_dims 32/80/96/256, blocks not
-// a multiple of 128), take the wmma route below: the port's simple flash
-// design (csrc/flash_attention_{fwd,bwd}.cu) with sparse loops.
+// the training layout's; ds_block_sparse_attention_fwd_wgmma and
+// ds_block_sparse_attention_bwd_wgmma at the end of this file) runs the flash
+// kernels' TMA + wgmma designs (csrc/flash_fwd_sm90.cuh, csrc/flash_bwd_sm90.cuh)
+// with a list-driven tile schedule: a 128-token layout block is exactly one
+// 128-row q tile of the forward and of the dQ kernel, one 128-row kv tile of
+// the forward and of the dK/dV kernel, so the forward walks the 128-row kv
+// tiles of its list's kv blocks, the dQ block their 64-row halves and the
+// dK/dV block the q tiles of its transposed list's q blocks; the producer
+// thread reads the list and issues the TMA loads from it, the consumers take
+// each tile's first key from the same list to mask the diagonal. The grid
+// takes the layout rows longest list first (SparseLayout's orders). The other
+// shapes (fp32, head_dims 32/80/96/256, blocks not a multiple of 128) take
+// the wmma route below: the port's simple flash design
+// (csrc/flash_attention_{fwd,bwd}.cu) with sparse loops.
 //
 // The wmma route's design: TILE / 16 warps per block (TILE = 16, 32 or 64),
 // each owning 16 rows of the block's tile end to end. Tiles are staged in
@@ -815,17 +817,56 @@ extern "C" int ds_block_sparse_attention_bwd(
 }
 
 // ===================================================================================
-// The backward's wgmma route: bf16 / fp16 at head_dim 64 and 128, blocks a
-// multiple of 128, on the kernels of csrc/flash_bwd_sm90.cuh with the layout's
-// lists as their tile schedule (ListDq, ListDkv).
+// The wgmma route: bf16 / fp16 at head_dim 64 and 128, blocks a multiple of
+// 128, on the kernels of csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh
+// with the layout's lists as their tile schedule (ListFwd; ListDq, ListDkv).
 // ===================================================================================
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 
-// The arguments as ds_block_sparse_attention_bwd's, except that `scratch` is
-// the caller's fp32 buffer of 2 * batch * heads * s_q floats (lse2 rows, then
-// delta rows), which the call fills, and q_order / kv_order are the grid's
-// order of the layout's q and kv blocks (permutations, int32). Every stride a
+// The forward: the arguments as ds_block_sparse_attention_fwd's, and q_order,
+// the grid's order of the layout's q blocks (a permutation, int32). Every
+// stride a multiple of 8 elements, every base 16-byte aligned (TMA). Returns
+// a cudaError_t; what the route does not take is cudaErrorInvalidValue.
+extern "C" int ds_block_sparse_attention_fwd_wgmma(
+    const void* q, const void* k, const void* v, void* o, float* lse, const int* idx,
+    const int* cnt, const int* q_order, int max_a, int dtype, int batch, int heads, int s_q,
+    int s_kv, int head_dim, int block, const long long* strides, float scale, int causal,
+    void* stream) {
+  namespace ff = flash_fwd_sm90;
+  if (batch <= 0 || heads <= 0 || block <= 0 || block % ff::Cfg<64>::BQ != 0 || s_q <= 0 ||
+      s_kv <= 0 || s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
+      s_q / ff::Cfg<64>::BQ > 65535 || max_a <= 0)
+    return (int)cudaErrorInvalidValue;
+  ff::Args a;
+  a.o = o;
+  a.lse = lse;
+  a.heads = heads;
+  a.kv_heads = heads;
+  a.s_q = s_q;
+  a.s_kv = s_kv;
+  a.o_sb = strides[9]; a.o_ss = strides[10]; a.o_sh = strides[11];
+  a.scale = scale;
+  a.causal = causal;
+  const ff::ListParams lists{idx, cnt, q_order, max_a, block};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1 && head_dim == 64)
+    err = ff::launch<__half, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+  if (dtype == 1 && head_dim == 128)
+    err = ff::launch<__half, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+  if (dtype == 2 && head_dim == 64)
+    err = ff::launch<__nv_bfloat16, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+  if (dtype == 2 && head_dim == 128)
+    err = ff::launch<__nv_bfloat16, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+  return (int)err;
+}
+
+// The backward: the arguments as ds_block_sparse_attention_bwd's, except that
+// `scratch` is the caller's fp32 buffer of 2 * batch * heads * s_q floats (lse2
+// rows, then delta rows), which the call fills, and q_order / kv_order are the
+// grid's order of the layout's q and kv blocks (permutations). Every stride a
 // multiple of 8 elements, every base 16-byte aligned (TMA). Returns a
 // cudaError_t; what the route does not take is cudaErrorInvalidValue.
 extern "C" int ds_block_sparse_attention_bwd_wgmma(

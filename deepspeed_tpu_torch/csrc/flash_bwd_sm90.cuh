@@ -165,53 +165,9 @@ struct DenseDkv {
   __device__ Cursor cursor() const { return Cursor{h0, q_start, n_q, 0}; }
 };
 
-// a layout's lists (ops/cuda/block_sparse_attention.py SparseLayout): idx
-// [rows, max_a] ascending, cnt [rows], order a permutation of the rows
-struct ListParams {
-  const int* idx;
-  const int* cnt;
-  const int* order;
-  int max_a;
-  int block;
-};
-
 // dQ over the forward lists: the 64-row halves of each listed kv block
 template <int BQ, int BKV>
-struct ListDq {
-  using Params = ListParams;
-  static_assert(BQ % 64 == 0 && BKV % 64 == 0, "list tiles");
-  struct Cursor {
-    const int* list;
-    int block, lim, causal;   // lim: the last key the q tile's last row sees
-    int i, sub, k0, n_sub;
-    // the kv tiles of the block starting at key k that some row of the q tile reaches
-    __device__ int reach(int k) const {
-      if (!causal) return block / BKV;
-      return lim < k ? 0 : min(block / BKV, (lim - k) / BKV + 1);
-    }
-    __device__ int next() {   // the next kv tile's first row
-      while (sub >= n_sub) {
-        k0 = list[i++] * block;
-        n_sub = reach(k0);
-        sub = 0;
-      }
-      return k0 + BKV * sub++;
-    }
-  };
-  int q0, n;
-  Cursor start;
-  __device__ ListDq(const Args& a, const Params& p) {
-    const int per = p.block / BQ;
-    const int qb = p.order[blockIdx.y / per];
-    q0 = qb * p.block + (blockIdx.y % per) * BQ;
-    start = Cursor{p.idx + (long long)qb * p.max_a, p.block, q0 + BQ - 1 + a.s_kv - a.s_q,
-                   a.causal, 0, 0, 0, 0};
-    const int cnt = p.cnt[qb];
-    n = 0;
-    for (int i = 0; i < cnt; ++i) n += start.reach(start.list[i] * p.block);
-  }
-  __device__ Cursor cursor() const { return start; }
-};
+using ListDq = ListQ<BQ, BKV>;
 
 // dK/dV over the transposed lists: the BQ-row q tiles of each listed q block
 // (one head: the block-sparse kernels take q, k and v with one head count)

@@ -23,7 +23,7 @@
 //     0.19 ms, and on the way there the dequantization: every weight element
 //     is turned into bf16 once per 128-row block of x, on the CUDA cores.
 //
-// Three routes, picked by the caller as a pure function of the shape
+// Four routes, picked by the caller as a pure function of the shape
 // (ops/cuda/quantized_matmul.py kernel_route) and passed in:
 //
 //   * wgmma (the prefill, m > 16, bf16 x, k a multiple of 64, n of 16, g a
@@ -55,7 +55,12 @@
 //     Each k step stages an x tile and a DEQUANTIZED w tile in shared memory;
 //     the group of row r is r / g, so any g dividing k is taken, odd ones
 //     included, and ragged m, n and k tails are masked;
-//   * gemv (m <= 16, decode): a split-k GEMV, below.
+//   * mma (decode, m <= 16, the shapes the wgmma route takes): weights
+//     streamed through a cp.async ring, dequantized in registers into
+//     mma.sync's A operand, split k added in order by each strip's last
+//     block; below;
+//   * gemv (the other m <= 16 shapes: fp16/fp32 x, ragged, odd groups): a
+//     split-k GEMV, below.
 // A wgmma or wmma grid too small to fill the card (a short prefill) splits k,
 // and a second kernel adds the fp32 partials in order, so the result does not
 // depend on the launch.
@@ -241,7 +246,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- decode: m <= 16 rows --------------------------------------------------------
+// -- decode: m <= 16 rows, the shapes the mma route does not take ----------------
 //
 // A 16-row tile wastes most of the tensor-core tile when m is 1-8, and one
 // block per 64 columns sweeping all of k leaves the card latency-bound
@@ -693,12 +698,385 @@ cudaError_t launch_wgmma(const void* x, const void* q, const void* scale, void* 
   return cudaGetLastError();
 }
 
-enum Route { ROUTE_GEMV = 0, ROUTE_WMMA = 1, ROUTE_WGMMA = 2 };
+// -- decode on Hopper: streamed weights, dequantized in registers, mma.sync -------
+//
+// m <= 16 rows of bf16 x, the shapes the wgmma route takes (wgmma_takes). The
+// product runs transposed, y^T = W^T x^T, on mma.sync.m16n8k16 (bf16 in, fp32
+// accumulators): the dequantized weight is the A operand (16 output columns x
+// 16 k) built in registers, x^T the B operand (16 k x 8 tokens; two of them
+// for m 9-16). So the tensor cores do every product, and each weight element
+// costs the CUDA cores only its dequantization.
+//
+// The MMA's k slots may stand for any k, and its rows for any columns, as
+// long as A and B agree; the kernel picks them so that a thread's A fragments
+// come from its own 16-byte loads. Lane (g, t) (g = lane / 4, t = lane % 4)
+// of a warp owns the 16 adjacent columns 16g .. 16g + 15 of the warp's
+// 128-column strip and, in every 16-deep k chunk, the 4 adjacent k rows
+// 4t .. 4t + 3; MMA j (of 8 per chunk) maps its row g to column 16g + 2j and
+// row g + 8 to 16g + 2j + 1. Per chunk a thread loads 4 int8 rows (16 bytes
+// each: its 16 columns), or 2 packed int4 rows, and its 8-byte slice of each
+// x row; per warp a load instruction fetches whole 128-byte lines.
+//
+// The loads are cp.async (16 bytes a thread; x 8 bytes) into a ring of
+// MMA_STAGES stages in shared memory, each thread reading back only what it
+// copied, so the ring needs no barrier: per step (16 k of int8, 32 k of int4)
+// a warp streams 2 KB of weights, and MMA_STAGES - 1 steps are in flight, 6
+// KB a warp, 48 KB an SM at the 2 blocks of 4 warps an SM the caller's k
+// splits make (the latency of HBM at 3.35 TB/s over 132 SMs asks for about
+// 24 KB; on an H100 a deeper ring, 8-warp blocks and 3-4 blocks an SM were
+// slower, and every split adds a tail: PERF.md §6). The scale rows of the
+// block's k range are copied to shared memory once, at the start; a thread
+// reads its 16 columns' scales when its group changes.
+//
+// Dequantization, in registers: int8 bytes become floats exactly (the biased
+// byte permuted into the mantissa of 2^23, less the bias), a pair is rounded
+// to bf16x2 (exact: integers below 2^8) and multiplied by the scale pair in
+// bf16x2; int4: one byte permute puts a column's two packed rows side by side
+// and each nibble pair becomes bf16x2 128 + n by a mask into 0x4300's
+// mantissa, less 136 (exact), times the scale pair. One rounding of the
+// exact product each: bf16(float(q) * float(scale)), the plain version's.
+//
+// The grid: one block per (128-column strip, k split); its 4 warps take the
+// steps of its k range in turn and add their partials in warp order. With
+// more than one split each block writes its fp32 partial [split, m, n], and
+// the last block of a strip to finish (an atomic ticket per strip, which that
+// block resets to 0) adds the partials in split order and writes y, each
+// thread 4 columns with 8 splits' loads in flight: one launch, and a result
+// that does not depend on the launch.
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_COLS = 128;       // columns per block: 8 lane groups x 16
+constexpr int MMA_STAGES = 4;       // steps in each thread's ring
+constexpr int MMA_UNITS = 6;        // 16-byte units a thread holds a stage: 4 of weights, 2 of x
+constexpr int MMA_STAGE_BYTES = MMA_UNITS * MMA_THREADS * 16;
+constexpr int MMA_RING = MMA_STAGES * MMA_STAGE_BYTES;   // 48 KB
+constexpr int MMA_SPLIT_ROWS = 64;  // a k split is a multiple of this many rows
+
+// 16 bytes, L1 bypassed; L2 fetches the whole 128-byte line from HBM (on an
+// H100 3-4% faster on the int8 linears of 45 MB than no hint, 256 bytes
+// slower: PERF.md §6)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// D (+)= A B: m16n8k16, bf16 in, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four floats rounded to bf16 at an 8-byte aligned address
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(bf162_bits(__floats2bfloat162_rn(v.x, v.y)),
+                                              bf162_bits(__floats2bfloat162_rn(v.z, v.w)));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  return bf162_bits(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                            *reinterpret_cast<const __nv_bfloat162*>(&b)));
+}
+
+// an int8 byte (selected by b) of a word biased by 0x80 per byte, as a float
+__device__ __forceinline__ float int8_float(uint32_t biased, uint32_t b) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | b)) - 8388736.0f;
+}
+
+// (x & 0x000F000F) | 0x43004300: the nibbles at bits 0 and 16 as bf16x2 128 + n
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t x) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(r) : "r"(x), "r"(0x000F000Fu), "r"(0x43004300u));
+  return r;
+}
+
+// The A fragment of MMA j from a thread's loads, scaled: rows g (column 2j of
+// its 16) and g + 8 (column 2j + 1). int8: w holds the 4 rows 4t .. 4t + 3,
+// biased by 0x80 per byte; k slots (2t, 2t + 1, 2t + 8, 2t + 9) stand for
+// rows (4t, 4t + 1, 4t + 2, 4t + 3). int4: w[0], w[1] hold the packed rows of
+// k (4t, 4t + 1) and (4t + 2, 4t + 3); the slots stand for (4t, 4t + 2,
+// 4t + 1, 4t + 3).
+template <int BITS>
+__device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const uint4* w, int j,
+                                           uint32_t sc_lo, uint32_t sc_hi) {
+  const int wi = j >> 1;
+  const auto word = [&](int r) {
+    const uint4 v = w[r];
+    return wi == 0 ? v.x : wi == 1 ? v.y : wi == 2 ? v.z : v.w;
+  };
+  if constexpr (BITS == 8) {
+    const uint32_t b0 = 2 * (j & 1), b1 = b0 + 1;
+    const uint32_t r0 = word(0), r1 = word(1), r2 = word(2), r3 = word(3);
+    a[0] = bf162_bits(__floats2bfloat162_rn(int8_float(r0, b0), int8_float(r1, b0)));
+    a[1] = bf162_bits(__floats2bfloat162_rn(int8_float(r0, b1), int8_float(r1, b1)));
+    a[2] = bf162_bits(__floats2bfloat162_rn(int8_float(r2, b0), int8_float(r3, b0)));
+    a[3] = bf162_bits(__floats2bfloat162_rn(int8_float(r2, b1), int8_float(r3, b1)));
+  } else {
+    // bytes: column 2j of row pair 0, column 2j + 1 of it, the same of row pair 1
+    const uint32_t x = __byte_perm(word(0), word(1), (j & 1) ? 0x7632u : 0x5410u);
+    const __nv_bfloat162 bias = __floats2bfloat162_rn(136.0f, 136.0f);
+    const auto deq = [&](uint32_t v) {
+      return bf162_bits(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), bias));
+    };
+    a[0] = deq(nibbles_bf16x2(x));
+    a[2] = deq(nibbles_bf16x2(x >> 4));
+    a[1] = deq(nibbles_bf16x2(x >> 8));
+    a[3] = deq(nibbles_bf16x2(x >> 12));
+  }
+  a[0] = bf16x2_mul(a[0], sc_lo);
+  a[2] = bf16x2_mul(a[2], sc_lo);
+  a[1] = bf16x2_mul(a[1], sc_hi);
+  a[3] = bf16x2_mul(a[3], sc_hi);
+}
+
+// One block per (128-column strip, k split of k_per_split rows, a multiple of
+// 64). MT: 8 or 16 tokens (m <= MT). partial/tickets: the split-k scratch
+// ([splits, M, N] fp32; one int per strip, 0 between launches), unused with
+// one split.
+template <int BITS, int MT>
+__global__ void __launch_bounds__(MMA_THREADS, MT == 8 ? 4 : 3)
+    qmv_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ partial, int* __restrict__ tickets, int M, int N, int K,
+                   int group, int k_per_split) {
+  constexpr int SK = BITS == 8 ? 16 : 32;     // k rows of a warp's step
+  constexpr int CHUNKS = SK / 16;
+  constexpr int HALVES = MT / 8;              // n8 MMAs per A fragment
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * MMA_COLS;
+  const int col = n0 + 16 * g;                // this thread's columns col .. col + 15
+  const bool col_ok = col < N;                // N % 16 == 0: all 16 or none
+  const int k_begin = blockIdx.y * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int n_steps = (k_end - k_begin) / SK;
+  const int my_steps = n_steps > warp ? (n_steps - warp + MMA_WARPS - 1) / MMA_WARPS : 0;
+  const int g_first = k_begin / group;
+  const int n_srows = (k_end - 1) / group - g_first + 1;
+  __nv_bfloat16* srows = reinterpret_cast<__nv_bfloat16*>(smem + MMA_RING);  // [n_srows][128]
+
+  // the k rows of this warp's step j: k_begin + (warp + 4 j) SK ..
+  const auto issue = [&](int j) {
+    const int k0 = k_begin + (warp + MMA_WARPS * j) * SK;
+    unsigned char* st = smem + (j % MMA_STAGES) * MMA_STAGE_BYTES;
+    if (col_ok) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long row = BITS == 8 ? k0 + 4 * t + i : k0 / 2 + 8 * (i >> 1) + 2 * t + (i & 1);
+        cp_async16(st + (i * MMA_THREADS + tid) * 16, q + row * N + col);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      unsigned char* dst = st + ((4 + c) * MMA_THREADS + tid) * 16;
+      const int kx = k0 + 16 * c + 4 * t;
+      if (g < M) cp_async8(dst, x + (long long)g * K + kx);
+      if (HALVES == 2 && g + 8 < M) cp_async8(dst + 8, x + (long long)(g + 8) * K + kx);
+    }
+  };
+
+  for (int e = tid; e < n_srows * (MMA_COLS / 8); e += MMA_THREADS) {
+    const int r = e / (MMA_COLS / 8), c8 = (e % (MMA_COLS / 8)) * 8;
+    if (n0 + c8 < N)
+      cp_async16(srows + r * MMA_COLS + c8, scale + (long long)(g_first + r) * N + n0 + c8);
+  }
+#pragma unroll
+  for (int j = 0; j < MMA_STAGES - 1; ++j) {
+    if (j < my_steps) issue(j);
+    cp_async_commit();
+  }
+  cp_async_wait<MMA_STAGES - 2>();   // the scale rows (and step 0) have landed
+  __syncthreads();
+
+  float acc[HALVES][8][4];
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.0f;
+  int s_row = -1;
+  uint32_t sw[8];   // scales of this thread's 16 columns in its current group, bf16 pairs
+
+  for (int j = 0; j < my_steps; ++j) {
+    if (j + MMA_STAGES - 1 < my_steps) issue(j + MMA_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<MMA_STAGES - 1>();   // step j has landed
+    const unsigned char* st = smem + (j % MMA_STAGES) * MMA_STAGE_BYTES;
+    const int k0 = k_begin + (warp + MMA_WARPS * j) * SK;
+    uint4 w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = *reinterpret_cast<const uint4*>(st + (i * MMA_THREADS + tid) * 16);
+      if constexpr (BITS == 8) {
+        w[i].x ^= 0x80808080u;
+        w[i].y ^= 0x80808080u;
+        w[i].z ^= 0x80808080u;
+        w[i].w ^= 0x80808080u;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int row = (k0 + 16 * c + 4 * t) / group - g_first;
+      if (row != s_row) {
+        s_row = row;
+        const uint4* sp = reinterpret_cast<const uint4*>(srows + row * MMA_COLS + 16 * g);
+        const uint4 s0 = sp[0], s1 = sp[1];
+        sw[0] = s0.x; sw[1] = s0.y; sw[2] = s0.z; sw[3] = s0.w;
+        sw[4] = s1.x; sw[5] = s1.y; sw[6] = s1.z; sw[7] = s1.w;
+      }
+      const uint4 xv = *reinterpret_cast<const uint4*>(st + ((4 + c) * MMA_THREADS + tid) * 16);
+      uint32_t b[HALVES][2];
+      if constexpr (BITS == 8) {
+        b[0][0] = xv.x;
+        b[0][1] = xv.y;
+        if constexpr (HALVES == 2) {
+          b[1][0] = xv.z;
+          b[1][1] = xv.w;
+        }
+      } else {
+        b[0][0] = __byte_perm(xv.x, xv.y, 0x5410u);
+        b[0][1] = __byte_perm(xv.x, xv.y, 0x7632u);
+        if constexpr (HALVES == 2) {
+          b[1][0] = __byte_perm(xv.z, xv.w, 0x5410u);
+          b[1][1] = __byte_perm(xv.z, xv.w, 0x7632u);
+        }
+      }
+#pragma unroll
+      for (int mj = 0; mj < 8; ++mj) {
+        uint32_t a[4];
+        a_fragment<BITS>(a, BITS == 8 ? w : w + 2 * c, mj, __byte_perm(sw[mj], 0, 0x1010u),
+                         __byte_perm(sw[mj], 0, 0x3232u));
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) mma_bf16(acc[h][mj], a, b[h][0], b[h][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring: it becomes the warps' sums
+
+  // accumulator c0..c3 of MMA j: (column 16g + 2j, token 2t), (16g + 2j, 2t + 1),
+  // (16g + 2j + 1, 2t), (16g + 2j + 1, 2t + 1), tokens + 8 in the second half
+  float* red = reinterpret_cast<float*>(smem);   // [warps][MT][128]
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int mj = 0; mj < 8; ++mj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(red + (warp * MT + 8 * h + 2 * t + e) * MMA_COLS + 16 * g +
+                                   2 * mj) = make_float2(acc[h][mj][e], acc[h][mj][2 + e]);
+  __syncthreads();
+  // the block's sum in warp order, 4 columns of one token a thread at a time
+  const int splits = gridDim.y;
+  for (int e = tid; e < M * (MMA_COLS / 4); e += MMA_THREADS) {
+    const int tok = e / (MMA_COLS / 4), c = (e % (MMA_COLS / 4)) * 4;
+    if (n0 + c >= N) continue;   // N % 16 == 0: all 4 columns or none
+    float4 sum = *reinterpret_cast<const float4*>(red + tok * MMA_COLS + c);
+#pragma unroll
+    for (int wp = 1; wp < MMA_WARPS; ++wp) {
+      const float4 v = *reinterpret_cast<const float4*>(red + (wp * MT + tok) * MMA_COLS + c);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const long long o = (long long)tok * N + n0 + c;
+    if (splits > 1)
+      *reinterpret_cast<float4*>(partial + (long long)blockIdx.y * M * N + o) = sum;
+    else
+      store_bf16x4(y + o, sum);
+  }
+  if (splits == 1) return;
+  // the last block of the strip adds the splits' partials in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + blockIdx.x, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int BATCH = 8;   // partials in flight a thread: one L2 round trip per BATCH splits
+  for (int e = tid; e < M * (MMA_COLS / 4); e += MMA_THREADS) {
+    const int tok = e / (MMA_COLS / 4), c = (e % (MMA_COLS / 4)) * 4;
+    if (n0 + c >= N) continue;
+    const long long o = (long long)tok * N + n0 + c;
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s0 = 0; s0 < splits; s0 += BATCH) {
+      float4 v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (s0 + u < splits)
+          v[u] = __ldcg(reinterpret_cast<const float4*>(partial + (s0 + u) * (long long)M * N +
+                                                        o));
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (s0 + u < splits) {
+          sum.x += v[u].x;
+          sum.y += v[u].y;
+          sum.z += v[u].z;
+          sum.w += v[u].w;
+        }
+    }
+    store_bf16x4(y + o, sum);
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
+}
+
+template <int BITS, int MT>
+cudaError_t launch_mma(const void* x, const void* q, const void* scale, void* y, float* work,
+                       int* tickets, int M, int N, int K, int group, int splits,
+                       cudaStream_t stream) {
+  if (!wgmma_takes(M, N, K, group) || M > MT || splits < 1) return cudaErrorInvalidValue;
+  int k_per_split = (K + splits - 1) / splits;
+  k_per_split = (k_per_split + MMA_SPLIT_ROWS - 1) / MMA_SPLIT_ROWS * MMA_SPLIT_ROWS;
+  splits = (K + k_per_split - 1) / k_per_split;
+  if (splits > 1 && (work == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;
+  // the scale rows a k range can touch: one more where it starts inside a group
+  const int bytes = MMA_RING + (k_per_split / group + 2) * MMA_COLS * 2;
+  if (bytes > 232448) return cudaErrorInvalidValue;
+  auto kernel = qmv_mma_kernel<BITS, MT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + MMA_COLS - 1) / MMA_COLS, splits);
+  kernel<<<grid, MMA_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y), work, tickets, M,
+      N, K, group, k_per_split);
+  return cudaGetLastError();
+}
+
+enum Route { ROUTE_GEMV = 0, ROUTE_WMMA = 1, ROUTE_WGMMA = 2, ROUTE_MMA = 3 };
 
 template <typename T, int BITS>
 cudaError_t launch(int route, int block_rows, const void* x, const void* q, const void* scale,
-                   void* y, float* work, int M, int N, int K, int group, int splits,
+                   void* y, float* work, int* tickets, int M, int N, int K, int group, int splits,
                    cudaStream_t stream) {
+  if (route == ROUTE_MMA) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (M <= 8)
+        return launch_mma<BITS, 8>(x, q, scale, y, work, tickets, M, N, K, group, splits, stream);
+      return launch_mma<BITS, 16>(x, q, scale, y, work, tickets, M, N, K, group, splits, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (route == ROUTE_GEMV) {
     if (M > 16 || work == nullptr || splits < 1) return cudaErrorInvalidValue;
     if (M <= 1) return launch_qmv<T, BITS, 1>(x, q, scale, y, work, M, N, K, group, splits, stream);
@@ -728,12 +1106,14 @@ cudaError_t launch(int route, int block_rows, const void* x, const void* q, cons
 
 template <typename T>
 cudaError_t launch_bits(int bits, int route, int block_rows, const void* x, const void* q,
-                        const void* scale, void* y, float* work, int M, int N, int K, int group,
-                        int splits, cudaStream_t stream) {
+                        const void* scale, void* y, float* work, int* tickets, int M, int N,
+                        int K, int group, int splits, cudaStream_t stream) {
   if (bits == 8)
-    return launch<T, 8>(route, block_rows, x, q, scale, y, work, M, N, K, group, splits, stream);
+    return launch<T, 8>(route, block_rows, x, q, scale, y, work, tickets, M, N, K, group, splits,
+                        stream);
   if (bits == 4)
-    return launch<T, 4>(route, block_rows, x, q, scale, y, work, M, N, K, group, splits, stream);
+    return launch<T, 4>(route, block_rows, x, q, scale, y, work, tickets, M, N, K, group, splits,
+                        stream);
   return cudaErrorInvalidValue;
 }
 
@@ -741,33 +1121,37 @@ cudaError_t launch_bits(int bits, int route, int block_rows, const void* x, cons
 
 // dtype (of x, scale and y): 0 = float32, 1 = float16, 2 = bfloat16. bits 8:
 // q is int8 [K, N]; bits 4: q is uint8 [K/2, N] (K even). scale is [K/group, N].
-// Every tensor is contiguous (and, for the wgmma route, 16-byte aligned).
-// route: 0 the GEMV (M <= 16), 1 the wmma/FMA tiled kernel, 2 the TMA +
-// wgmma kernel (bf16; K % 64 == 0, N % 16 == 0, group a multiple of 64 or
-// one of 8, 16, 32) with blocks of block_rows (128 or 256) rows of x; the
-// other routes ignore block_rows. work is the caller's fp32 scratch of
-// splits * M * N for the split-k partials: needed for the GEMV (splits >= 1)
-// and for splits > 1; else it may be null. Returns a cudaError_t.
+// Every tensor is contiguous (and, for the wgmma and mma routes, 16-byte
+// aligned). route: 0 the GEMV (M <= 16), 1 the wmma/FMA tiled kernel, 2 the
+// TMA + wgmma kernel (bf16; K % 64 == 0, N % 16 == 0, group a multiple of 64
+// or one of 8, 16, 32) with blocks of block_rows (128 or 256) rows of x, 3
+// the mma decode kernel (M <= 16, the wgmma route's shapes); the other routes
+// ignore block_rows. work is the caller's fp32 scratch of splits * M * N for
+// the split-k partials: needed for the GEMV (splits >= 1) and for splits > 1;
+// else it may be null. tickets: the mma route's int per 128-column strip,
+// zero before the launch and zero after it (needed for splits > 1). Returns a
+// cudaError_t.
 extern "C" int ds_quantized_matmul(const void* x, const void* q, const void* scale, void* y,
-                                   void* work, int dtype, int bits, int M, int N, int K,
-                                   int group, int splits, int route, int block_rows,
+                                   void* work, void* tickets, int dtype, int bits, int M, int N,
+                                   int K, int group, int splits, int route, int block_rows,
                                    void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || K % group != 0 || (bits == 4 && K % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
+  int* tk = static_cast<int*>(tickets);
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_bits<float>(bits, route, block_rows, x, q, scale, y, wk, M, N, K, group,
+      err = launch_bits<float>(bits, route, block_rows, x, q, scale, y, wk, tk, M, N, K, group,
                                splits, st);
       break;
     case 1:
-      err = launch_bits<__half>(bits, route, block_rows, x, q, scale, y, wk, M, N, K, group,
+      err = launch_bits<__half>(bits, route, block_rows, x, q, scale, y, wk, tk, M, N, K, group,
                                 splits, st);
       break;
     case 2:
-      err = launch_bits<__nv_bfloat16>(bits, route, block_rows, x, q, scale, y, wk, M, N, K,
+      err = launch_bits<__nv_bfloat16>(bits, route, block_rows, x, q, scale, y, wk, tk, M, N, K,
                                        group, splits, st);
       break;
     default: err = cudaErrorInvalidValue;

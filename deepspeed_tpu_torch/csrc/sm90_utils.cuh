@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of the
 // port: mbarriers, TMA loads (tensor maps encoded on the host through the
 // runtime's driver entry point, so no library links -lcuda), wgmma's shared
-// memory descriptors and the wgmma instructions themselves.
+// memory descriptors and the wgmma instructions themselves, and the tile
+// schedule of a q tile over a block-sparse layout's lists.
 //
 // Tiles of 16-bit elements live in shared memory as TMA writes them with the
 // 128-byte swizzle: a [rows x cols] tile is cols / 64 panels of [rows x 64]
@@ -400,6 +401,63 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 64) wgmma_rs_n64<T>(d, a, desc_b, accumulate);
   else wgmma_rs_n128<T>(d, a, desc_b, accumulate);
 }
+
+// -- tile schedules over a block-sparse layout's lists -----------------------------
+
+// a layout's lists (ops/cuda/block_sparse_attention.py SparseLayout): idx
+// [rows, max_a] ascending, cnt [rows], order a permutation of the rows
+struct ListParams {
+  const int* idx;
+  const int* cnt;
+  const int* order;
+  int max_a;
+  int block;
+};
+
+// A BQ-row q tile walking the BKV-row kv tiles of the kv blocks its q block's
+// list holds, in the list's order (a block is a whole number of both tiles):
+// grid row blockIdx.y is a q tile of the q block order[blockIdx.y / (block /
+// BQ)]. With causal masking (key c seen by query r when c <= r + s_kv - s_q)
+// a kv tile that no row of the q tile reaches is skipped. The tile schedule
+// of the flash forward's and dQ kernels on a layout (ListFwd, ListDq); Args
+// is the kernel's, with s_q, s_kv and causal.
+template <int BQ, int BKV>
+struct ListQ {
+  using Params = ListParams;
+  static_assert(BQ % 64 == 0 && BKV % 64 == 0, "list tiles");
+  struct Cursor {
+    const int* list;
+    int block, lim, causal;   // lim: the last key the q tile's last row sees
+    int i, sub, k0, n_sub;
+    // the kv tiles of the block starting at key k that some row of the q tile reaches
+    __device__ int reach(int k) const {
+      if (!causal) return block / BKV;
+      return lim < k ? 0 : min(block / BKV, (lim - k) / BKV + 1);
+    }
+    __device__ int next() {   // the next kv tile's first key
+      while (sub >= n_sub) {
+        k0 = list[i++] * block;
+        n_sub = reach(k0);
+        sub = 0;
+      }
+      return k0 + BKV * sub++;
+    }
+  };
+  int q0, n;   // the q tile's first row, its kv tiles
+  Cursor start;
+  template <class Args>
+  __device__ ListQ(const Args& a, const Params& p) {
+    const int per = p.block / BQ;
+    const int qb = p.order[blockIdx.y / per];
+    q0 = qb * p.block + (blockIdx.y % per) * BQ;
+    start = Cursor{p.idx + (long long)qb * p.max_a, p.block, q0 + BQ - 1 + a.s_kv - a.s_q,
+                   a.causal, 0, 0, 0, 0};
+    const int cnt = p.cnt[qb];
+    n = 0;
+    for (int i = 0; i < cnt; ++i) n += start.reach(start.list[i] * p.block);
+  }
+  __device__ Cursor cursor() const { return start; }
+};
 
 // -- tensor maps (host) -------------------------------------------------------------
 

@@ -5,8 +5,9 @@ where it launches its kernel and nowhere else, so a run can show which
 kernels its main path went through. The kernels with two routes count every
 launch under their name (``flash_attention_{fwd,bwd}``,
 ``quantized_matmul_int{8,4}``, ``fused_ce_forward``,
-``block_sparse_attention_bwd``) and those of their TMA + wgmma route also
-under the name with ``_wgmma``.
+``block_sparse_attention_{fwd,bwd}``) and those of their TMA + wgmma route
+also under the name with ``_wgmma``; the quantized matmul's decode route
+also under ``quantized_matmul_int{8,4}_mma``.
 """
 
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
@@ -15,8 +16,9 @@ LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                  "paged_flash_decode": 0, "paged_flash_decode_int8": 0,
                  "quantized_matmul_int8": 0, "quantized_matmul_int4": 0,
                  "quantized_matmul_int8_wgmma": 0, "quantized_matmul_int4_wgmma": 0,
+                 "quantized_matmul_int8_mma": 0, "quantized_matmul_int4_mma": 0,
                  "block_sparse_attention_fwd": 0, "block_sparse_attention_bwd": 0,
-                 "block_sparse_attention_bwd_wgmma": 0}
+                 "block_sparse_attention_fwd_wgmma": 0, "block_sparse_attention_bwd_wgmma": 0}
 
 
 # the routes of the kernels with two: TMA + wgmma, and the warp-level wmma

@@ -10,13 +10,13 @@ holds a block layout (``ops/sparse_attention/sparsity_config.py``) with its
 per-q-block active kv lists and the transposed lists, on one device, built
 once; every call reads them there.
 
-The backward has two routes, fixed by ``block_sparse_route(dtype, head_dim,
+Both have two routes, fixed by ``block_sparse_route(dtype, head_dim,
 block)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64 and 128
-with a block that is a multiple of 128: the flash backward's TMA + wgmma
-kernels walking the layout's lists, the grid in the layout's heavy-first
-order) and ``wmma`` (everything else the kernels take: warp-level wmma or
-fp32 FMAs through shared memory). The forward has the ``wmma`` kernel only.
-A failed build or launch raises; neither route falls back to the other.
+with a block that is a multiple of 128: the flash forward's and backward's
+TMA + wgmma kernels walking the layout's lists, the grid in the layout's
+heavy-first order) and ``wmma`` (everything else the kernels take: warp-level
+wmma or fp32 FMAs through shared memory). A failed build or launch raises;
+neither route falls back to the other.
 
 Layout ``[b, s, h, d]`` in and out, one head count for q, k and v (the model
 repeats GQA kv heads before the call, as the JAX package does); causal
@@ -43,18 +43,18 @@ from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (
 
 NEG_INF = -1e30
 
-# the backward's TMA + wgmma route takes 16-bit types at head_dim 64 and 128
-# when a layout block is a whole number of its 128-row tiles
+# the TMA + wgmma route takes 16-bit types at head_dim 64 and 128 when a
+# layout block is a whole number of its 128-row tiles
 _WGMMA_BLOCK = 128
 
 
 def block_sparse_route(dtype, head_dim, block):
-    """The route the block-sparse backward takes for ``dtype``, ``head_dim``
-    and the layout's ``block``: a pure function of the three, decided before
-    the launch. ``"wgmma"`` for bf16/fp16 at head_dim 64 and 128 with a block
-    that is a multiple of 128, ``"wmma"`` for every other shape the kernels
-    take (fp32/fp16/bf16, head_dim in ``_KERNEL_HEAD_DIMS``, a block that is a
-    multiple of 16); None where no route does."""
+    """The route the block-sparse forward and backward take for ``dtype``,
+    ``head_dim`` and the layout's ``block``: a pure function of the three,
+    decided before the launch. ``"wgmma"`` for bf16/fp16 at head_dim 64 and
+    128 with a block that is a multiple of 128, ``"wmma"`` for every other
+    shape the kernels take (fp32/fp16/bf16, head_dim in ``_KERNEL_HEAD_DIMS``,
+    a block that is a multiple of 16); None where no route does."""
     if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS or block <= 0 \
             or block % 16:
         return None
@@ -63,15 +63,15 @@ def block_sparse_route(dtype, head_dim, block):
     return "wmma"
 
 
-def _pick_route(q, block, route):
+def _pick_route(kernel, q, block, route):
     """``block_sparse_route`` for q at ``block``, or the route ``route``
     forces (``resolve_route``)."""
-    return resolve_route("block-sparse backward", block_sparse_route(q.dtype, q.shape[3], block),
-                         route, f"{q.dtype} at head_dim {q.shape[3]} and block {block}")
+    return resolve_route(kernel, block_sparse_route(q.dtype, q.shape[3], block), route,
+                         f"{q.dtype} at head_dim {q.shape[3]} and block {block}")
 
 
 def heavy_first(counts):
-    """The order in which the wgmma backward's grid takes a layout's rows:
+    """The order in which the wgmma kernels' grids take a layout's rows:
     the longest lists first, ties in row order (a stable sort), so that the
     rows with the most tiles start in the first wave."""
     return np.argsort(-np.asarray(counts, np.int64), kind="stable").astype(np.int32)
@@ -99,7 +99,7 @@ class SparseLayout:
     blocks each q block attends, ascending, padded with the last) and
     ``bwd_idx``/``bwd_cnt`` (the same of the transposed layout: the q blocks
     attending each kv block), int32, copied to the device once; and
-    ``q_order``/``kv_order``, the wgmma backward's grid orders of the q and
+    ``q_order``/``kv_order``, the wgmma kernels' grid orders of the q and
     kv blocks (``heavy_first`` of the two counts)."""
 
     def __init__(self, layout, block, device="cpu"):
@@ -281,18 +281,22 @@ def _check_cuda_inputs(q, k, v, lists):
         raise ValueError(f"the layout's lists are on {lists.device}, the tensors on {q.device}")
 
 
-def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_lse=False):
+def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_lse=False,
+                               _route=None):
     """Block-sparse softmax(scale q k^T) v over ``lists`` (a ``SparseLayout``)
     for ``[b, s, h, d]`` tensors (and, with ``return_lse``, the fp32
     ``[b, h, s_q]`` row logsumexp).
 
     CPU tensors take ``block_sparse_attention_fwd_reference``. CUDA tensors
-    launch the kernel on the current stream (no synchronisation) or raise
-    on what it does not take: dtypes other than fp32/fp16/bf16, head_dim
-    outside ``_KERNEL_HEAD_DIMS`` (the flash kernels' set: 32, 64, 80, 96,
-    128, 256), a block that is not a multiple of 16, lists on
-    another device, a non-contiguous last dim or rows not 16-byte aligned."""
+    launch the kernel of ``block_sparse_route`` on the current stream (no
+    synchronisation) or raise on what it does not take: dtypes other than
+    fp32/fp16/bf16, head_dim outside ``_KERNEL_HEAD_DIMS`` (the flash
+    kernels' set: 32, 64, 80, 96, 128, 256), a block that is not a multiple
+    of 16, lists on another device, a non-contiguous last dim or rows not
+    16-byte aligned. ``_route`` forces a route, for timing one against the
+    other (``_pick_route``)."""
     _check_shapes(q, k, v, lists, causal)
+    route = _pick_route("block-sparse forward", q, lists.block, _route)
     if _on_cpu(q, k, v):
         return block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal, scale=scale,
                                                     return_lse=return_lse)
@@ -308,17 +312,24 @@ def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_l
 
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = load_op("block_sparse_attention")
+    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               lse.data_ptr() if return_lse else None, lists.fwd_idx.data_ptr(),
+               lists.fwd_cnt.data_ptr())
+    shape = (lists.max_a, _KERNEL_DTYPES[q.dtype], b, h, s_q, k.shape[1], d, lists.block,
+             (ctypes.c_longlong * 12)(*strides), float(scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ds_block_sparse_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, lists.fwd_idx.data_ptr(),
-            lists.fwd_cnt.data_ptr(), lists.max_a, _KERNEL_DTYPES[q.dtype], b, h, s_q,
-            k.shape[1], d, lists.block, (ctypes.c_longlong * 12)(*strides), float(scale),
-            int(bool(causal)), stream)
+        if route == "wgmma":
+            err = lib.ds_block_sparse_attention_fwd_wgmma(*tensors, lists.q_order.data_ptr(),
+                                                          *shape, stream)
+        else:
+            err = lib.ds_block_sparse_attention_fwd(*tensors, *shape, stream)
     if err:
-        raise RuntimeError(f"block_sparse_attention_fwd launch failed: cudaError_t {err}")
+        raise RuntimeError(f"block_sparse_attention_fwd launch failed ({route} route): "
+                           f"cudaError_t {err}")
     LAUNCH_COUNTS["block_sparse_attention_fwd"] += 1
+    if route == "wgmma":
+        LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] += 1
     return (out, lse) if return_lse else out
 
 
@@ -335,7 +346,7 @@ def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=No
     restrictions, o/do unlike q, or a missing lse. ``_route`` forces a
     route, for timing one against the other (``_pick_route``)."""
     _check_shapes(q, k, v, lists, causal)
-    route = _pick_route(q, lists.block, _route)
+    route = _pick_route("block-sparse backward", q, lists.block, _route)
     if lse is None:
         raise ValueError("block-sparse backward needs the forward's lse "
                          "(block_sparse_attention_fwd(..., return_lse=True))")

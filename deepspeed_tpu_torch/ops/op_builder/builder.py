@@ -194,7 +194,8 @@ class PagedFlashDecodeBuilder(CUDAOpBuilder):
 
 
 class QuantizedMatmulBuilder(CUDAOpBuilder):
-    """``csrc/quantized_matmul.cu``: the weight-only int8/int4 dequant-matmul."""
+    """``csrc/quantized_matmul.cu``: the weight-only int8/int4 dequant-matmul,
+    every route (split-k GEMV, wmma/FMA, TMA + wgmma, the mma decode kernel)."""
 
     NAME = "quantized_matmul"
     SOURCES = ("quantized_matmul.cu",)
@@ -202,14 +203,15 @@ class QuantizedMatmulBuilder(CUDAOpBuilder):
     def bind(self, lib):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.ds_quantized_matmul
-        fn.argtypes = [p] * 5 + [i] * 9 + [p]
+        fn.argtypes = [p] * 6 + [i] * 9 + [p]
         fn.restype = ctypes.c_int
 
 
 class BlockSparseAttentionBuilder(CUDAOpBuilder):
-    """``csrc/block_sparse_attention.cu``: the block-sparse forward, and the
-    backward (dQ and dK/dV kernels, one call), both routes
-    (``ds_block_sparse_attention_bwd``: wmma/FMA; ``..._wgmma``: TMA + wgmma)."""
+    """``csrc/block_sparse_attention.cu``: the block-sparse forward and the
+    backward (dQ and dK/dV kernels, one call), both routes each
+    (``ds_block_sparse_attention_{fwd,bwd}``: wmma/FMA; ``..._wgmma``: TMA +
+    wgmma)."""
 
     NAME = "block_sparse_attention"
     SOURCES = ("block_sparse_attention.cu",)
@@ -219,6 +221,9 @@ class BlockSparseAttentionBuilder(CUDAOpBuilder):
         strides = ctypes.POINTER(ctypes.c_longlong)
         fwd = lib.ds_block_sparse_attention_fwd
         fwd.argtypes = [p] * 7 + [i] * 8 + [strides, f, i, p]
+        fwd.restype = ctypes.c_int
+        fwd = lib.ds_block_sparse_attention_fwd_wgmma
+        fwd.argtypes = [p] * 8 + [i] * 8 + [strides, f, i, p]
         fwd.restype = ctypes.c_int
         bwd = lib.ds_block_sparse_attention_bwd
         bwd.argtypes = [p] * 14 + [i] * 9 + [strides, f, i, p]

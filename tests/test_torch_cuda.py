@@ -593,8 +593,11 @@ def test_qmm_wgmma_route_matches_plain(cuda, m, group, bits):
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("shape,dtype,route", [
-    ((16, 4096, 4096, 64), torch.bfloat16, "gemv"),     # m: the decode GEMV's largest
+    ((16, 4096, 4096, 64), torch.float16, "gemv"),      # m: the decode GEMV's largest
+    ((16, 4096, 4096, 64), torch.bfloat16, "mma"),      # m: the mma decode kernel's largest
     ((17, 4096, 4096, 64), torch.bfloat16, "wgmma"),    # and one row more
+    ((8, 4096, 4104, 64), torch.bfloat16, "gemv"),      # n: 8 past a multiple of 16
+    ((8, 4128, 1024, 32), torch.bfloat16, "gemv"),      # k: 32 past a multiple of 64
     ((200, 4096, 4104, 64), torch.bfloat16, "wmma"),    # n: 8 past a multiple of 16
     ((200, 4096, 4112, 64), torch.bfloat16, "wgmma"),   # n: a multiple of 16
     ((200, 4128, 1024, 32), torch.bfloat16, "wmma"),    # k: 32 past a multiple of 64
@@ -602,22 +605,23 @@ def test_qmm_wgmma_route_matches_plain(cuda, m, group, bits):
     ((200, 4032, 1024, 96), torch.bfloat16, "wmma"),    # a group neither side of 64 divides
     ((200, 4096, 1024, 8), torch.bfloat16, "wgmma"),    # the least group it takes
     ((200, 4096, 1024, 64), torch.float16, "wmma"),     # fp16 x: fp32 FMA
-], ids=["gemv-m16", "wgmma-m17", "wmma-n4104", "wgmma-n4112", "wmma-k4128", "wgmma-k4160",
-        "wmma-g96", "wgmma-g8", "wmma-fp16"])
+], ids=["gemv-m16", "mma-m16", "wgmma-m17", "gemv-n4104", "gemv-k4128", "wmma-n4104",
+        "wgmma-n4112", "wmma-k4128", "wgmma-k4160", "wmma-g96", "wgmma-g8", "wmma-fp16"])
 def test_qmm_route_boundary(cuda, shape, dtype, route, bits):
-    """Shapes on each side of the wgmma route's boundary take the route
-    ``kernel_route`` names (the wgmma key counts only its launches) and
-    match the plain version."""
+    """Shapes on each side of the Hopper routes' boundary take the route
+    ``kernel_route`` names (the wgmma and mma keys count only their
+    launches) and match the plain version."""
     from deepspeed_tpu_torch.ops.cuda.quantized_matmul import kernel_route, quantized_matmul
 
     m, k, n, group = shape
     assert kernel_route(m, n, k, group, dtype, bits) == route
     x, q, scale = _qmm_inputs(m, k, n, group, bits, dtype, cuda)
-    key = f"quantized_matmul_int{bits}_wgmma"
-    before = LAUNCH_COUNTS[key]
+    keys = {r: f"quantized_matmul_int{bits}_{r}" for r in ("wgmma", "mma")}
+    before = {r: LAUNCH_COUNTS[key] for r, key in keys.items()}
     y = quantized_matmul(x, q, scale, bits=bits)
     torch.cuda.synchronize()
-    assert LAUNCH_COUNTS[key] == before + (route == "wgmma")
+    for r, key in keys.items():
+        assert LAUNCH_COUNTS[key] == before[r] + (route == r)
     _assert_qmm_matches_plain(y, x, q, scale, bits)
 
 
@@ -652,6 +656,58 @@ def test_qmm_forced_routes(cuda):
     x, q, scale = _qmm_inputs(300, 4096, 1000, 64, 8, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="route"):
         quantized_matmul(x, q, scale, bits=8, route="wgmma")
+
+
+@pytest.mark.parametrize("group", [32, 64, 128])
+@pytest.mark.parametrize("kn", [(4096, 4096), (4096, 11008), (11008, 4096)],
+                         ids=["k4096-n4096", "k4096-n11008", "k11008-n4096"])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_qmm_mma_route_matches_plain(cuda, bits, m, kn, group):
+    """The mma decode kernel at Llama-7B's linears for every decode m (one
+    and two n8 halves): within ``rounding_bound``, one launch counted under
+    the route's key too, and a second launch bitwise equal to the first
+    (the splits are added in order by the strip's last block)."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import kernel_route, quantized_matmul
+
+    k, n = kn
+    x, q, scale = _qmm_inputs(m, k, n, group, bits, torch.bfloat16, cuda)
+    assert kernel_route(m, n, k, group, torch.bfloat16, bits) == "mma"
+    before = dict(LAUNCH_COUNTS)
+    y = quantized_matmul(x, q, scale, bits=bits)
+    again = quantized_matmul(x, q, scale, bits=bits)
+    torch.cuda.synchronize()
+    for name in (f"quantized_matmul_int{bits}", f"quantized_matmul_int{bits}_mma"):
+        assert LAUNCH_COUNTS[name] == before[name] + 2
+    assert LAUNCH_COUNTS[f"quantized_matmul_int{bits}_wgmma"] == (
+        before[f"quantized_matmul_int{bits}_wgmma"])
+    assert torch.equal(y, again)
+    _assert_qmm_matches_plain(y, x, q, scale, bits)
+
+
+def test_qmm_mma_forced_routes(cuda):
+    """The old split-k GEMV still computes an mma shape (``chip_smoke.py``
+    times the two in turns); mma forced on fp16 x, or at m 17, raises; the
+    mma kernel takes an x that starts 2 bytes in (copied once)."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+
+    x, q, scale = _qmm_inputs(8, 4096, 11008, 64, 8, torch.bfloat16, cuda)
+    before = dict(LAUNCH_COUNTS)
+    y = quantized_matmul(x, q, scale, bits=8, route="gemv")
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["quantized_matmul_int8_mma"] == before["quantized_matmul_int8_mma"]
+    assert LAUNCH_COUNTS["quantized_matmul_int8"] == before["quantized_matmul_int8"] + 1
+    _assert_qmm_matches_plain(y, x, q, scale, 8)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    _assert_qmm_matches_plain(quantized_matmul(shifted, q, scale, bits=8), x, q, scale, 8)
+    x16, q16, scale16 = _qmm_inputs(8, 4096, 4096, 64, 8, torch.float16, cuda)
+    with pytest.raises(ValueError, match="route"):
+        quantized_matmul(x16, q16, scale16, bits=8, route="mma")
+    x17, q17, scale17 = _qmm_inputs(17, 4096, 4096, 64, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="route"):
+        quantized_matmul(x17, q17, scale17, bits=8, route="mma")
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -1143,3 +1199,115 @@ def test_block_sparse_forced_route_refuses_what_it_does_not_take(cuda):
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
+        with pytest.raises(ValueError, match="route"):
+            block_sparse_attention_fwd(q, k, v, lists, causal=True, _route="wgmma")
+
+
+# -- the block-sparse forward's two routes -------------------------------------------
+
+def _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, causal, what):
+    """o within 1e-5 + ``rounding_bound`` of the plain version, lse (when
+    given) within 1e-5 + 1e-5 |lse|."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_fwd_reference, rounding_bound)
+
+    ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal,
+                                                        return_lse=True)
+    assert out.dtype == q.dtype and out.shape == q.shape, what
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / (1e-5 + rounding_bound(q, k, v, ref, lists, causal=causal))).max().item()
+    assert worst <= 1.0, f"{what}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+    if lse is not None:
+        assert lse.shape == ref_lse.shape, what
+        assert ((lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all(), what
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("mode", ["causal", "causal-sq<skv", "noncausal"])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("pattern", _SPARSE_PATTERNS)
+def test_block_sparse_fwd_routes_match_plain(cuda, pattern, block, mode, dtype, d):
+    """Both routes of the block-sparse forward against the plain version for
+    every pattern at blocks 128 and 256, causal (s_q = s_kv and s_q < s_kv)
+    and not, with and without lse: o within 1e-5 + ``rounding_bound``, lse
+    within 1e-5 + 1e-5 |lse|, the output without lse bitwise that with it.
+    The wgmma route is the one ``block_sparse_route`` picks; each launch
+    counts on its route."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (block_sparse_attention_fwd,
+                                                                     block_sparse_route)
+
+    causal = mode != "noncausal"
+    s_kv = 8 * block
+    s_q = s_kv - block if mode == "causal-sq<skv" else s_kv
+    lists, q, k, v, _ = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, cuda)
+    assert block_sparse_route(dtype, d, block) == "wgmma"
+    for route in ("wgmma", "wmma"):
+        forced = None if route == "wgmma" else route
+        before = dict(LAUNCH_COUNTS)
+        out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True,
+                                              _route=forced)
+        bare = block_sparse_attention_fwd(q, k, v, lists, causal=causal, _route=forced)
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["block_sparse_attention_fwd"] == (
+            before["block_sparse_attention_fwd"] + 2)
+        assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == (
+            before["block_sparse_attention_fwd_wgmma"] + 2 * (route == "wgmma"))
+        assert torch.equal(out, bare), route
+        _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, causal, route)
+
+
+def test_block_sparse_wgmma_fwd_writes_empty_rows_as_the_plain_version(cuda):
+    """A non-causal 128-token layout in which q block 2 attends nothing: its
+    rows come back o = 0 and lse = -1e30 (the plain version's), the rest
+    within the bound, in bf16 and fp16 at d 64 and 128."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (SparseLayout,
+                                                                     block_sparse_attention_fwd)
+
+    layout = np.zeros((4, 4), bool)
+    layout[:, 0] = True
+    layout[3, 3] = True
+    layout[2, :] = False
+    lists = SparseLayout(layout, 128, cuda)
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (64, 128):
+            q, k, v = _qkv(2, 512, 512, 2, 2, d, dtype, cuda)
+            before = LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"]
+            out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=False, return_lse=True)
+            torch.cuda.synchronize()
+            assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == before + 1
+            assert (out[:, 256:384] == 0).all() and (lse[:, :, 256:384] == -1e30).all()
+            _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, False, f"{dtype} d{d}")
+
+
+def test_block_sparse_wgmma_fwd_skips_blocks_past_the_diagonal(cuda):
+    """A causal layout that keeps every block, those wholly past the causal
+    diagonal too: the wgmma forward skips them and holds the plain version,
+    which masks them (s_q = s_kv and s_q < s_kv)."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (SparseLayout,
+                                                                     block_sparse_attention_fwd)
+
+    for s_q in (512, 384):
+        lists = SparseLayout(np.ones((s_q // 128, 4), bool), 128, cuda)
+        q, k, v = _qkv(1, s_q, 512, 2, 2, 128, torch.float16, cuda)
+        out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
+                                              _route="wgmma")
+        _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, True, f"s_q {s_q}")
+
+
+def test_block_sparse_wgmma_fwd_at_s4096_is_deterministic(cuda):
+    """Phase 8's pattern (fixed, 128-token blocks, 4 local, 1 global) on b 3
+    x s 4096 bf16 (the training step's tokens as long sequences): within the
+    bound, and two launches bitwise equal."""
+    from deepspeed_tpu_torch.ops import sparse_attention as SA
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import block_sparse_attention_fwd
+
+    lists = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=128, num_local_blocks=4,
+                                                         num_global_blocks=1), 4096,
+                                    device=cuda).lists
+    q, k, v = _qkv(3, 4096, 4096, 16, 16, 64, torch.bfloat16, cuda)
+    first, lse = block_sparse_attention_fwd(q, k, v, lists, return_lse=True)
+    second = block_sparse_attention_fwd(q, k, v, lists)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _assert_sparse_fwd_matches_plain(first, lse, q, k, v, lists, True, "b3 s4096")

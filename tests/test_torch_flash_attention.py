@@ -234,6 +234,15 @@ def test_builder_signature_sees_the_included_headers(tmp_path):
     for name in hopper:
         assert (again[name] != after[name]) == (name in ("flash_attention_bwd",
                                                          "block_sparse_attention")), name
+    # the forward kernel both forward routes' libraries share
+    fwd = csrc / "flash_fwd_sm90.cuh"
+    for name in ("flash_attention_fwd", "block_sparse_attention"):
+        assert str(fwd) in builders[name].headers(), name
+    fwd.write_text(fwd.read_text() + "\n// an edit\n")
+    last = {name: b._signature() for name, b in builders.items()}
+    for name in hopper:
+        assert (last[name] != again[name]) == (name in ("flash_attention_fwd",
+                                                        "block_sparse_attention")), name
     # a header that a header includes counts too
     (csrc / "inner.cuh").write_text("// v1\n")
     shared.write_text('#include "inner.cuh"\n' + shared.read_text())

@@ -90,9 +90,9 @@ def test_kernel_route_takes_every_prefill_linear_to_wgmma(monkeypatch):
     (the SM count aside, pinned here to the H100's 132): every Llama-7B
     linear at every token count m > 16 that ``chip_smoke.py``'s quantized
     serving phase runs takes the TMA + wgmma route, in int8 and int4; the
-    decode batches take the GEMV; the ragged case and fp16/fp32 x take the
-    wmma route; a long prefill takes 256-row blocks and does not split k, a
-    short one takes 128-row blocks and splits k when they are few."""
+    decode batches take the mma decode kernel; the ragged case and fp16/fp32
+    x take the wmma route; a long prefill takes 256-row blocks and does not
+    split k, a short one takes 128-row blocks and splits k when they are few."""
     import chip_smoke
 
     monkeypatch.setattr(tqmm, "_sm_count", lambda index: 132)
@@ -101,7 +101,7 @@ def test_kernel_route_takes_every_prefill_linear_to_wgmma(monkeypatch):
     for bits in (8, 4):
         for k, n in chip_smoke.LLAMA_LINEARS:
             for m in ms:
-                want = "wgmma" if m > 16 else "gemv"
+                want = "wgmma" if m > 16 else "mma"
                 assert tqmm.kernel_route(m, n, k, 64, torch.bfloat16, bits) == want, (m, k, n)
         assert tqmm.kernel_route(37, 4000, 4094, 23, torch.bfloat16, bits) == "wmma"
         for dtype in (torch.float16, torch.float32):

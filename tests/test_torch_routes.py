@@ -1,8 +1,10 @@
-"""The routes of the CE forward and the block-sparse backward, on the CPU:
-which kernel each shape takes (a pure function of dtype and width, decided
-before the launch), the host-side planning of the TMA + wgmma routes (the
-CE's vocab slices, the block-sparse grid's heavy-first order), and the
-forced ``_route`` the shape cannot take, which raises."""
+"""The routes of the CE forward, the block-sparse forward and backward and
+the quantized matmul, on the CPU: which kernel each shape takes (a pure
+function of dtype, width, block and m, decided before the launch), the
+host-side planning of the Hopper routes (the CE's vocab slices, the
+block-sparse grid's heavy-first order and the forward's walk over the
+layout's lists, the quantized decode kernel's k splits), and the forced
+route the shape cannot take, which raises."""
 
 import ast
 import inspect
@@ -14,9 +16,11 @@ import torch
 from deepspeed_tpu_torch.models.registry import MODEL_CONFIGS
 from deepspeed_tpu_torch.ops import sparse_attention as SA
 from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
-    SparseLayout, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
-    block_sparse_attention_fwd_reference, block_sparse_route, heavy_first)
+    SparseLayout, _visible, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
+    block_sparse_attention_fwd, block_sparse_attention_fwd_reference, block_sparse_route,
+    heavy_first)
 from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_route, ce_vocab_splits,
                                                         fused_ce_forward,
                                                         fused_ce_forward_reference)
@@ -176,4 +180,168 @@ def test_forced_route_the_shape_cannot_take_raises():
                                                 lists128)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert dict(LAUNCH_COUNTS) == before
+
+
+def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128):
+    """A mirror of ``ListQ`` (csrc/sm90_utils.cuh), the wgmma forward's
+    ``ListFwd``: for every grid row (the q tiles of the q blocks in
+    ``q_order``), the first keys of the kv tiles its producer loads and its
+    consumers mask, in order."""
+    block = lists.block
+    idx, cnt, order = (t.tolist() for t in (lists.fwd_idx, lists.fwd_cnt, lists.q_order))
+    per = block // tile
+    walks = {}
+    for row in range(s_q // tile):
+        qb = order[row // per]
+        q0 = qb * block + (row % per) * tile
+        lim = q0 + tile - 1 + s_kv - s_q   # the last key the tile's last row sees
+
+        def reach(k):
+            if not causal:
+                return block // tile
+            return 0 if lim < k else min(block // tile, (lim - k) // tile + 1)
+
+        n = sum(reach(idx[qb][i] * block) for i in range(cnt[qb]))
+        keys, i, sub, k0, n_sub = [], 0, 0, 0, 0
+        for _ in range(n):   # Cursor::next
+            while sub >= n_sub:
+                k0 = idx[qb][i] * block
+                i += 1
+                n_sub, sub = reach(k0), 0
+            keys.append(k0 + tile * sub)
+            sub += 1
+        walks[q0] = keys
+    return walks
+
+
+@pytest.mark.parametrize("case", [
+    ("fixed", 128, True, 1024, 1024, {"num_local_blocks": 4, "num_global_blocks": 1}),
+    ("bigbird", 256, False, 2048, 2048, {}),
+    ("fixed", 128, True, 768, 1024, {}),
+], ids=["training-layout", "bigbird-256-noncausal", "causal-sq<skv"])
+def test_list_fwd_walk_is_the_plain_versions_visible_tiles(case):
+    """The wgmma forward's tile walk over a layout's lists visits, for every
+    128-row q tile, exactly the 128-row kv tiles in which the plain version's
+    ``_visible`` keeps some (query, key) element, ascending, each once; every
+    q tile of the grid once (the grid in heavy-first order)."""
+    pattern, block, causal, s_q, s_kv, kw = case
+    lists = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kw), s_q, s_kv,
+                                    causal=causal).lists
+    walks = _list_fwd_walk(lists, s_q, s_kv, causal)
+    assert sorted(walks) == list(range(0, s_q, 128))
+    want = {q0: set() for q0 in walks}
+    for a in range(lists.max_a):
+        kb, ok = _visible(lists, a, True, causal, s_q, s_kv, "cpu")
+        ok = ok.expand(-1, block, block)   # [n, 1, 1] where nothing is masked
+        for qb in range(ok.shape[0]):
+            for r in range(block // 128):
+                for c in range(block // 128):
+                    if ok[qb, 128 * r:128 * (r + 1), 128 * c:128 * (c + 1)].any():
+                        want[qb * block + 128 * r].add(int(kb[qb]) * block + 128 * c)
+    for q0, keys in walks.items():
+        assert keys == sorted(want[q0]), q0
+    if pattern == "fixed" and s_q == s_kv:
+        assert sum(len(k) for k in walks.values()) == 24   # the kept blocks of phase 8's layout
+
+
+def test_block_sparse_forward_takes_the_backwards_route():
+    """The forward's route is ``block_sparse_route``'s, as the backward's: a
+    forced wgmma route at a block it cannot take (64) or in fp32 raises on
+    CPU tensors too; where it can, the CPU tensors still take the plain
+    version (with an empty layout row: o = 0, lse = -1e30), launching
+    nothing."""
+    r = np.random.RandomState(0)
+    q, k, v = (torch.tensor(r.randn(1, 256, 2, 64), dtype=torch.float32) for _ in range(3))
+    with pytest.raises(ValueError, match="route"):
+        block_sparse_attention_fwd(q, k, v, SparseLayout(np.tril(np.ones((2, 2), bool)), 128),
+                                   _route="wgmma")
+    layout = np.tril(np.ones((4, 4), bool))
+    with pytest.raises(ValueError, match="route"):
+        block_sparse_attention_fwd(q, k, v, SparseLayout(layout, 64), _route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        block_sparse_attention_fwd(q, k, v, SparseLayout(layout, 64), _route="tiled")
+    before = dict(LAUNCH_COUNTS)
+    layout = np.tril(np.ones((2, 2), bool))
+    layout[1] = False   # q block 1 sees no key
+    lists = SparseLayout(layout, 128)
+    args = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got, lse = block_sparse_attention_fwd(*args, lists, causal=False, return_lse=True,
+                                          _route="wgmma")
+    want, want_lse = block_sparse_attention_fwd_reference(*args, lists, causal=False,
+                                                          return_lse=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+    assert (got[:, 128:] == 0).all() and (lse[:, :, 128:] == -1e30).all()
+    assert dict(LAUNCH_COUNTS) == before
+
+
+def test_quantized_matmul_route_is_fixed_by_dtype_shape_and_m():
+    """bf16 x with k a multiple of 64, n of 16 and a group of 8/16/32 or a
+    multiple of 64 takes the mma decode kernel at m <= 16 and the wgmma
+    kernel above; every other shape the split-k GEMV at m <= 16 and the
+    wmma kernel above; the same for both bit widths. Every block linear of
+    the registry's presets (the tiny test presets aside) takes the mma
+    route in bf16 decode."""
+    for bits in (8, 4):
+        route = lambda m, n, k, g, dtype=torch.bfloat16: qmm.kernel_route(m, n, k, g, dtype, bits)
+        for m in (1, 4, 8, 9, 16):
+            for k, n in ((4096, 4096), (4096, 11008), (11008, 4096)):
+                for g in (8, 16, 32, 64, 128):
+                    assert route(m, n, k, g) == "mma"
+            assert route(m, 4104, 4096, 64) == "gemv"    # n: 8 past a multiple of 16
+            assert route(m, 1024, 4128, 32) == "gemv"    # k: 32 past a multiple of 64
+            assert route(m, 1024, 4032, 96) == "gemv"    # a group neither side of 64 divides
+            for dtype in (torch.float16, torch.float32):
+                assert route(m, 11008, 4096, 64, dtype) == "gemv"
+        assert route(17, 11008, 4096, 64) == "wgmma"
+        assert route(17, 11008, 4096, 64, torch.float16) == "wmma"
+    for (family, size), c in _registry_configs().items():
+        if size == "tiny":
+            continue
+        q_width, kv_width = c.n_heads * c.head_dim, c.kv_heads * c.head_dim
+        for k, n in ((c.d_model, q_width), (c.d_model, kv_width), (q_width, c.d_model),
+                     (c.d_model, c.d_ff), (c.d_ff, c.d_model)):
+            assert qmm.kernel_route(8, n, k, 64, torch.bfloat16, 8) == "mma", (family, size, k, n)
+
+
+def test_mma_splits_make_two_blocks_an_sm():
+    """The mma decode kernel's k splits on 132 SMs: as many (128-column strip,
+    split) blocks as make two an SM, at least one, at most one per 64 rows
+    of k. Llama-7B's linears: 86 strips x 3 splits (n 11008), 32 x 8 (n
+    4096)."""
+    assert qmm.mma_splits(11008, 4096, 132) == 3
+    assert qmm.mma_splits(4096, 4096, 132) == qmm.mma_splits(4096, 11008, 132) == 8
+    assert qmm.mma_splits(4096, 128, 132) == 2                 # capped by k
+    assert qmm.mma_splits(10 ** 6, 4096, 132) == 1
+    for n, k in ((64, 64), (11008, 11008), (4112, 4160)):
+        s = qmm.mma_splits(n, k, 132)
+        assert 1 <= s <= k // 64 and s * -(-n // 128) <= max(264, -(-n // 128))
+
+
+def test_quantized_matmul_forced_routes():
+    """A forced route may take the older kernel of the same m (the GEMV
+    where mma is picked, the wmma kernel where wgmma is); one the shape
+    cannot take raises, on CPU tensors too (mma on fp16 x; mma at m 17;
+    wgmma at m 8); CPU tensors compute the plain version, launching nothing."""
+    from deepspeed_tpu_torch.ops.quantizer import quantize_per_channel
+
+    r = np.random.RandomState(0)
+    w = torch.tensor(r.randn(128, 64) * 0.02, dtype=torch.float32)
+    q, scale = quantize_per_channel(w, bits=8, group_size=64)
+    before = dict(LAUNCH_COUNTS)
+    for m, ok, bad in ((8, ("mma", "gemv"), ("wgmma", "wmma", "tiled")),
+                       (17, ("wgmma", "wmma"), ("mma", "gemv"))):
+        x = torch.tensor(r.randn(m, 128), dtype=torch.float32).to(torch.bfloat16)
+        s = scale.to(torch.bfloat16)
+        want = qmm.quantized_matmul_reference(x, q, s, bits=8)
+        for route in ok:
+            torch.testing.assert_close(qmm.quantized_matmul(x, q, s, bits=8, route=route), want,
+                                       rtol=0, atol=0)
+        for route in bad:
+            with pytest.raises(ValueError, match="route"):
+                qmm.quantized_matmul(x, q, s, bits=8, route=route)
+    x16 = torch.tensor(r.randn(8, 128), dtype=torch.float16)
+    with pytest.raises(ValueError, match="route"):
+        qmm.quantized_matmul(x16, q, scale.to(torch.float16), bits=8, route="mma")
     assert dict(LAUNCH_COUNTS) == before

@@ -4,26 +4,65 @@
     python3 tools/chip_ab.py BASE CHANGE      # two checkout roots, e.g. git archive copies
 
 Runs the generate path (``chip_smoke.py`` phase 4: full Llama-7B bf16,
-``generate()`` over its requests) and both training paths (phase 6: full
+``generate()`` over its requests), both training paths (phase 6: full
 GPT-2 medium, b12 x s1024 bf16, ``train_batch()`` with flash attention;
 phase 8: the same with block-sparse attention, fixed pattern of 128-token
-blocks) of each root through that root's own ``chip_smoke.py`` functions and
+blocks) and phase 7's int8 ``generate()`` (full Llama-7B with int8 weights,
+group 64, over phase 7's requests, cold and warm) of each root through that
+root's own ``chip_smoke.py`` constants and functions and its own package and
 kernels, one process per run, in the order BASE, CHANGE, CHANGE, BASE, so
 that drift of the card cancels. Each run builds only the kernels these paths
-launch (the flash forward and backward, the CE forward and the block-sparse
-kernels), from its root's sources. Prints one JSON line per run, then a
-summary line: each root's warm prefill ms per request and median step ms of
-each training path (the mean of its two runs) and CHANGE less BASE.
+launch (the flash forward and backward, the CE forward, the block-sparse
+kernels and the quantized matmul), from its root's sources. Prints one JSON
+line per run, then a summary line: each root's warm prefill ms per request,
+median step ms of each training path and warm int8 decode ms per token per
+request (each the mean of its two runs) and CHANGE less BASE.
 
     python3 tools/chip_ab.py --measure ROOT   # one run (what the driver starts)
+    python3 tools/chip_ab.py --qmm-sweep      # variants of the mma decode kernel in turns
 
 Needs one CUDA card and nvcc; fails without them.
 """
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+
+
+def int8_generate(torch, cs):
+    """Phase 7's int8 ``generate()``: ``init_inference`` on full Llama-7B
+    with ``quant`` int8 (group 64) and an int8 pool, then each of
+    ``cs.QUANT_REQUESTS`` (the same seeded prompts as phase 7) cold and
+    warm, MAX_NEW greedy tokens. Returns the decode ms per token of each
+    (``last_timing``, CUDA events) and the launch counts."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, llama_config
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+
+    cfg = llama_config("7b")
+    config = json.loads(json.dumps(cs.MAIN_CONFIG))
+    config["quant"] = {"enabled": True, "bits": 8, "group_size": 64}
+    config["serving"]["kv_pool"]["kv_dtype"] = "int8"
+    eng = deepspeed_tpu_torch.init_inference(CausalLM(cfg), config)
+    rng = np.random.RandomState(0)
+    reset_launch_counts()
+    out = {}
+    for name, shape in cs.REQUESTS:
+        ids = rng.randint(0, cfg.vocab_size, shape)
+        if name not in cs.QUANT_REQUESTS:
+            continue
+        for attempt in ("cold", "warm"):
+            eng.generate(ids, max_new_tokens=cs.MAX_NEW, greedy=True)
+            torch.cuda.synchronize()
+            out[f"{name}/{attempt}"] = eng.last_timing.seconds()["decode"] * 1e3 / (cs.MAX_NEW - 1)
+    launches = dict(LAUNCH_COUNTS)
+    eng.destroy()
+    return out, launches
 
 
 def measure(root):
@@ -41,7 +80,8 @@ def measure(root):
     from deepspeed_tpu_torch.models.transformer import _block_sparse_attn
 
     builders = [ALL_OPS[n]() for n in ("flash_attention_fwd", "flash_attention_bwd",
-                                       "fused_ce_forward", "block_sparse_attention")]
+                                       "fused_ce_forward", "block_sparse_attention",
+                                       "quantized_matmul")]
     for b, started in [(b, b.start()) for b in builders]:
         b.finish(started)
 
@@ -59,7 +99,10 @@ def measure(root):
     training = cs.phase_training(torch, checked)
     torch.cuda.empty_cache()
     sparse = cs.phase_training(torch, checked, sparse=True)
+    torch.cuda.empty_cache()
+    quant_decode, quant_launches = int8_generate(torch, cs)
     return {"root": root, "card": torch.cuda.get_device_name(0),
+            "int8_decode_ms_per_token": quant_decode, "int8_generate_launches": quant_launches,
             "prefill_ms": {r["request"]: r["prefill_ms"] for r in requests},
             "generate_launches": launches, "step_ms": training["step_ms"],
             "step_ms_median": training["step_ms_median"],
@@ -69,7 +112,151 @@ def measure(root):
             "sparse_train_launches": sparse["launches"]}
 
 
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+SOURCE = os.path.join("deepspeed_tpu_torch", "csrc", "quantized_matmul.cu")
+HINT = "cp.async.cg.shared.global.L2::128B"
+SET_SMEM = "cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);\n"
+
+
+def sweep_variants(text):
+    """{name: source text}: the source and one change each."""
+    for needle in (HINT, SET_SMEM, "constexpr int MMA_STAGES = 4;", "constexpr int MMA_WARPS = 4;",
+                   "MT == 8 ? 4 : 3)"):
+        if needle not in text:
+            raise SystemExit(f"chip_ab --qmm-sweep: {needle!r} not in {SOURCE}")
+    carveout = SET_SMEM + ("  if (err != cudaSuccess) return err;\n  err = cudaFuncSetAttribute("
+                           "kernel, cudaFuncAttributePreferredSharedMemoryCarveout, "
+                           "cudaSharedmemCarveoutMaxShared);\n")
+    return {"as-built": text,
+            "no-l2-hint": text.replace(HINT, "cp.async.cg.shared.global"),
+            "l2-256B": text.replace(HINT, "cp.async.cg.shared.global.L2::256B"),
+            "stages-6": text.replace("constexpr int MMA_STAGES = 4;",
+                                     "constexpr int MMA_STAGES = 6;"),
+            "warps-8": text.replace("constexpr int MMA_WARPS = 4;", "constexpr int MMA_WARPS = 8;")
+                           .replace("MT == 8 ? 4 : 3)", "MT == 8 ? 2 : 1)"),
+            "max-carveout": text.replace(SET_SMEM, carveout, 1)}
+
+
+def operands(torch, bits, k, n, m, gen):
+    from deepspeed_tpu_torch.ops.quantizer import pack_int4, quantize_per_channel
+
+    q, scale = quantize_per_channel(torch.randn(k, n, generator=gen, device="cuda") * 0.02,
+                                    bits=bits, group_size=64)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, pack_int4(q) if bits == 4 else q, scale.to(torch.bfloat16)
+
+
+def sweep_measure(tree, sweep_splits):
+    """One process in one tree: {case: ms}."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    import deepspeed_tpu_torch.ops.cuda.quantized_matmul as qmm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    own = qmm.mma_splits
+    out = {}
+
+    def timed(x, q, s, bits):
+        y = qmm.quantized_matmul(x, q, s, bits=bits)
+        ref = qmm.quantized_matmul(x, q, s, bits=bits, route="gemv")
+        if (y.float() - ref.float()).abs().max().item() > 0.1:
+            raise AssertionError("the mma route disagrees with the GEMV")
+        return cs.time_ms(lambda: qmm.quantized_matmul(x, q, s, bits=bits), 50)
+
+    for bits in (8, 4):
+        for k, n in cs.LLAMA_LINEARS:
+            for m in (1, 8):
+                x, q, s = operands(torch, bits, k, n, m, gen)
+                if not sweep_splits:
+                    out[f"int{bits} m{m} k{k} n{n}"] = timed(x, q, s, bits)
+                elif m == 8:
+                    for r in (1, 2, 3, 4):
+                        qmm.mma_splits = lambda n_, k_, sms, r=r: max(
+                            1, min(r * sms // math.ceil(n_ / qmm._MMA_COLS), k_ // 64))
+                        splits = qmm.mma_splits(n, k, 132)
+                        out[f"int{bits} m8 k{k} n{n} {r} blocks/SM ({splits} splits)"] = timed(
+                            x, q, s, bits)
+                    qmm.mma_splits = own
+        if sweep_splits:
+            for k, n in ((64, 4096), (128, 4096), (64, 11008), (512, 11008)):
+                x, q, s = operands(torch, bits, k, n, 8, gen)
+                splits = own(n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+                out[f"int{bits} m8 k{k} n{n} ({splits} splits)"] = timed(x, q, s, bits)
+    return out
+
+
+def sweep_run(tree, sweep_splits):
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--qmm-measure", tree,
+                           "splits" if sweep_splits else "variant"], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"chip_ab --qmm-sweep: {tree} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def qmm_sweep():
+    """``--qmm-sweep``: what limits the quantized matmul's mma decode kernel.
+    Two sweeps of ``csrc/quantized_matmul.cu``'s ``mma`` route (bf16 x, group
+    64) at Llama-7B's linears, int8 and int4: (1) variants of the kernel,
+    each a copy of the package under ``build/qmm_sweep/<name>/`` with one
+    textual change to the source (no L2 prefetch hint, a 256-byte hint, a
+    6-stage ring, 8-warp blocks, the largest shared-memory carveout), built
+    together and timed in turns (every variant, then every variant in
+    reverse) at m 1 and m 8; (2) the source as it is at the k splits that
+    make 1-4 blocks an SM (``mma_splits`` replaced in turn), at m 8, and at
+    linears of one or two 64-row chunks of k (the fixed cost of a launch and
+    of a split). ``chip_smoke.time_ms`` (CUDA events behind a sleep kernel),
+    means of 50 launches, each result first checked against the GEMV."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab --qmm-sweep: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    with open(os.path.join(ROOT, SOURCE), encoding="utf-8") as f:
+        texts = sweep_variants(f.read())
+    trees = {}
+    for name, text in texts.items():
+        tree = os.path.join(ROOT, "build", "qmm_sweep", name)
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "deepspeed_tpu_torch"),
+                        os.path.join(tree, "deepspeed_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tree)
+        with open(os.path.join(tree, SOURCE), "w", encoding="utf-8") as f:
+            f.write(text)
+        trees[name] = tree
+    builds = [subprocess.Popen([sys.executable, "-c",
+                                "import sys; sys.path.insert(0, sys.argv[1]); "
+                                "from deepspeed_tpu_torch.ops.op_builder import ALL_OPS; "
+                                "ALL_OPS['quantized_matmul']().build()", tree])
+              for tree in trees.values()]
+    if any([b.wait() for b in builds]):
+        raise SystemExit("chip_ab --qmm-sweep: a variant failed to build")
+    by_case = {}
+    for name in list(trees) + list(reversed(trees)):
+        for case, ms in sweep_run(trees[name], False).items():
+            by_case.setdefault(case, {}).setdefault(name, []).append(ms)
+    print("variants, ms (mean of two turns):", flush=True)
+    for case, by in by_case.items():
+        print(f"  {case:22s} " + "  ".join(f"{n} {sum(v) / len(v):.4f}" for n, v in by.items()))
+    print("k splits of the source as it is, ms:", flush=True)
+    splits = sweep_run(trees["as-built"], True)
+    for case, ms in splits.items():
+        print(f"  {case:48s} {ms:.4f}")
+    print(json.dumps({"card": smi.stdout.strip(), "variants": by_case, "splits": splits}))
+    return 0
+
+
 def main(argv):
+    if argv[:1] == ["--qmm-sweep"]:
+        return qmm_sweep()
+    if len(argv) == 3 and argv[0] == "--qmm-measure":
+        print(json.dumps(sweep_measure(argv[1], argv[2] == "splits")), flush=True)
+        return 0
     if len(argv) == 2 and argv[0] == "--measure":
         print(json.dumps(measure(argv[1])), flush=True)
         return 0
@@ -104,11 +291,15 @@ def main(argv):
             **{k.replace("median", "medians"): [r[k] for r in runs if r["label"] == label]
                for k in steps},
             "prefill_ms": {req: mean(label, lambda r, q=req: r["prefill_ms"][q])
-                           for req in runs[0]["prefill_ms"]}}
+                           for req in runs[0]["prefill_ms"]},
+            "int8_decode_ms_per_token": {
+                req: mean(label, lambda r, q=req: r["int8_decode_ms_per_token"][q])
+                for req in runs[0]["int8_decode_ms_per_token"] if req.endswith("/warm")}}
     summary["change_less_base"] = {
         **{k: summary["change"][k] - summary["base"][k] for k in steps},
-        "prefill_ms": {q: summary["change"]["prefill_ms"][q] - summary["base"]["prefill_ms"][q]
-                       for q in summary["base"]["prefill_ms"]}}
+        **{part: {q: summary["change"][part][q] - summary["base"][part][q]
+                  for q in summary["base"][part]}
+           for part in ("prefill_ms", "int8_decode_ms_per_token")}}
     print(json.dumps({"ab_summary": summary}), flush=True)
     return 0
 
