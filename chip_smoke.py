@@ -20,7 +20,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      route, an mma decode case through the old split-k GEMV, in turns), and
      the paged decode on an int8 pool; the attention
      kernels (flash forward with lse, flash backward, block-sparse forward
-     and backward) at head_dim 32, 80, 96 and 256;
+     and backward) at head_dim 32, 80, 96 and 256, the 16-bit flash kernels
+     at 80, 96 and 256 on their TMA + wgmma routes (the backward at 80 and
+     96) timed against the wmma route in turns, at phase 10's prefill and
+     training shapes too;
   3. the card against the CPU port: Llama-7B width with 2 layers in fp32, the
      same seeded weights on both; prefill logits and 8 greedy tokens, then
      ``serve()`` of a few staggered requests: the card's ``fused`` streams
@@ -71,7 +74,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      weights on the card and on the CPU port: ``generate()`` on a 128-token
      prompt (prefill logits, 8 greedy tokens), and one ``train_batch`` step
      at b 1 x s 128 (its loss and every grad) with flash attention, and at
-     GPT-J's 256 with block-sparse attention too.
+     GPT-J's 256 with block-sparse attention too; then the same presets in
+     bf16 (the flash kernels' wgmma routes): prefill logits, loss and every
+     grad against the CPU port within ``bf16_limit`` of an fp32 run;
+ 10. the head dims' bf16 main paths at full width and depth: ``generate()``
+     on GPT-J-6B (28 layers), GPT-NeoX-20B (44) and OPT-2.7B (32), prefill
+     and decode ms from ``last_timing`` cold and warm, every prefill's flash
+     forwards on the wgmma route, a profile of one GPT-J-6B prefill; then
+     ``train_batch()`` on OPT-2.7B at b 4 x s 2048 (phase 6's loop: 32 flash
+     forwards, 32 backwards and one CE forward a step, all on wgmma).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -139,6 +150,23 @@ SPARSE_ATTENTION = {"attention_impl": "block_sparse", "sparse_pattern": "fixed",
 
 def log(msg):
     print(msg, flush=True)
+
+
+def ptxas_spills(build_log):
+    """From nvcc's ``-Xptxas -v`` report: the number of entry functions
+    compiled and [(entry function, bytes of spill stores)] of those that
+    spill (mangled names, cut to 120 characters)."""
+    entries, spills, name = 0, [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            entries += 1
+        elif "bytes spill stores" in line and name is not None:
+            stores = int(line.split("bytes spill stores")[0].split(",")[-1].split()[-1])
+            if stores:
+                spills.append((name[:120], stores))
+            name = None
+    return entries, spills
 
 
 def time_ms(fn, iters):
@@ -275,7 +303,7 @@ def phase_kernels(torch, F, main_shapes):
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
             enable_gqa=kvh != h)
-        route = attention_route(dtype, d)
+        route = attention_route(dtype, d, "fwd")
         kernel = lambda: flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         old_route_ms = None
         if route == "wgmma":
@@ -821,18 +849,12 @@ def stretch_profile(torch, prof, wall_ms, run1_wall_ms):
     return out
 
 
-def profile_request(torch, eng, ids, wall_ms):
-    """Where one request's time goes on the card: a torch.profiler trace of a
-    generate() call (prefill + 63 decode steps), device kernel time summed by
-    kernel name, and the device's idle share of ``wall_ms``, the same
-    request's wall time measured without the profiler (whose host-side cost
-    would inflate the wall)."""
+def summarize_profile(prof, wall_ms, what):
+    """Device kernel time of a torch.profiler trace summed by kernel name,
+    and the device's idle share of ``wall_ms`` (the same work's time
+    measured without the profiler, whose host-side cost would inflate it)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate(ids, max_new_tokens=64, greedy=True)
-        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
@@ -840,15 +862,48 @@ def profile_request(torch, eng, ids, wall_ms):
         log("  profile: the trace shows no device time (not measured)")
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:10]
-    out = {"request": f"b=1 prompt {ids.shape[1]} + 64 new tokens", "wall_ms": wall_ms,
-           "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+    out = {"request": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
            "top_kernels": [{"name": e.key[:100], "ms": e.device_time_total / 1e3,
                             "count": e.count} for e in top]}
-    log(f"  profile: device busy {busy_ms:.1f} ms of the unprofiled {wall_ms:.1f} ms wall; "
+    log(f"  profile: device busy {busy_ms:.1f} ms of the unprofiled {wall_ms:.1f} ms; "
         f"idle share {out['device_idle_share']:.3f}")
     for k in out["top_kernels"]:
         log(f"    {k['ms']:9.3f} ms  x{k['count']:<6d} {k['name']}")
     return out
+
+
+def profile_request(torch, eng, ids, wall_ms):
+    """Where one request's time goes on the card: a torch.profiler trace of a
+    generate() call (prefill + 63 decode steps) against ``wall_ms``, the
+    same request's wall time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate(ids, max_new_tokens=64, greedy=True)
+        torch.cuda.synchronize()
+    return summarize_profile(prof, wall_ms, f"b=1 prompt {ids.shape[1]} + 64 new tokens")
+
+
+def profile_prefill(torch, eng, ids, new_tokens, prefill_ms):
+    """Where one prefill's time goes on the card: generate()'s prefill step
+    (``prefill_and_first_token`` on the prompt bucketed as generate() buckets
+    it for ``new_tokens``) under torch.profiler, against ``prefill_ms``, the
+    same prefill's time from ``last_timing`` without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.models.decoding import prefill_and_first_token
+
+    b, n = ids.shape
+    bucket = eng._bucket_prompt_len(n, eng.config.max_tokens - new_tokens)
+    ids_in = torch.nn.functional.pad(torch.as_tensor(ids, device=eng.device), (0, bucket - n))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill_and_first_token(eng.module, eng.params, ids_in, None, 1.0,
+                                max_len=bucket + new_tokens, greedy=True, top_k=0,
+                                dtype=eng.dtype, true_len=n)
+        torch.cuda.synchronize()
+    return summarize_profile(prof, prefill_ms, f"the prefill of b={b} prompt {n} (bucket "
+                                               f"{bucket})")
 
 
 def train_model_config():
@@ -915,7 +970,7 @@ def phase_train_kernels(torch, F):
         lse_use = check_limit(f"flash lse train {dtype}", (lse - ref_lse).abs(),
                               1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        route = attention_route(dtype, d)
+        route = attention_route(dtype, d, "fwd")
         kernel = lambda: flash_attention_fwd(q, k, v, causal=True, return_lse=True)
         old_route_ms = None
         if route == "wgmma":
@@ -968,7 +1023,7 @@ def phase_train_kernels(torch, F):
         o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
         do = rnd(bb, s_q, hq, d).to(dtype)
         args = (q, k, v, o, lse, do)
-        route = attention_route(dtype, d)
+        route = attention_route(dtype, d, "bwd")
         grads = flash_attention_bwd(*args, causal=causal)
         refs = flash_attention_bwd_reference(*args, causal=causal)
         # the wmma kernels at the same shape hold the plain version too
@@ -1033,11 +1088,15 @@ def phase_train_kernels(torch, F):
 
     # -- the CE forward ---------------------------------------------------------------
     tokens = b * s
-    for name, t, vocab, n_ignored, bias in (("train", tokens, TRAIN_VOCAB, 0, False),
-                                            ("vocab50257-ignored", tokens, 50257, 1000, False),
-                                            ("bias", 4096, TRAIN_VOCAB, 0, True)):
-        x = rnd(t, 1024).to(torch.bfloat16)
-        emb = (0.02 * rnd(vocab, 1024)).to(torch.bfloat16)
+    opt = width_train_model_config()   # phase 10's training head
+    for name, t, vocab, n_ignored, bias, dm in (
+            ("train", tokens, TRAIN_VOCAB, 0, False, 1024),
+            ("vocab50257-ignored", tokens, 50257, 1000, False, 1024),
+            ("bias", 4096, TRAIN_VOCAB, 0, True, 1024),
+            ("opt-2.7b-train", WIDTH_TRAIN_BATCH * WIDTH_TRAIN_SEQ, opt.vocab_size, 0, False,
+             opt.d_model)):
+        x = rnd(t, dm).to(torch.bfloat16)
+        emb = (0.02 * rnd(vocab, dm)).to(torch.bfloat16)
         labels = torch.randint(0, vocab, (t,), generator=gen, device="cuda")
         labels[:n_ignored] = -100
         safe = torch.where(labels != -100, labels, 0)   # as fused_cross_entropy passes them
@@ -1072,11 +1131,11 @@ def phase_train_kernels(torch, F):
             kernel_ms = time_ms(kernel, 10)
         plain_ms = time_ms(lambda: fused_ce_forward_reference(x, emb, safe, bvec), 3)
         library_ms = time_ms(lib, 10)
-        flops = 2 * t * vocab * 1024
+        flops = 2 * t * vocab * dm
         n_bytes = (x.numel() + emb.numel()) * 2 + t * 4 + (vocab * 4 if bias else 0) + t * 8
         t_ops = flops / H100_BF16_FLOPS
         bound_ms = max(t_ops, n_bytes / H100_BYTES) * 1e3
-        r = dict(case=name, dtype="bfloat16", tokens=t, d=1024, vocab=vocab, ignored=n_ignored,
+        r = dict(case=name, dtype="bfloat16", tokens=t, d=dm, vocab=vocab, ignored=n_ignored,
                  bias=bias, max_abs_err=err, tolerance=tol, limit_use=use, kernel_route=route,
                  ms=kernel_ms, old_route_ms=old_route_ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=bound_ms,
@@ -1102,18 +1161,65 @@ WIDTH_MODELS = (("opt", "2.7b"), ("gpt_neox", "20b"), ("gptj", "6b"))
 WIDTH_LAYERS = 2
 WIDTH_SPARSE = {"attention_impl": "block_sparse", "sparse_pattern": "fixed", "sparse_block": 32,
                 "sparse_pattern_config": {"num_local_blocks": 2, "num_global_blocks": 1}}
+# phase 10: the same presets in bf16 at full width and depth on their main
+# paths. generate(): WIDTH_PATH_NEW greedy tokens for each request named
+# (of WIDTH_PATH_REQUESTS: name, (batch, prompt length)), cold and warm
+WIDTH_PATH_CONFIG = {"dtype": "bfloat16", "max_tokens": 2048, "seed": 0}
+WIDTH_PATH_NEW = 32
+WIDTH_PATH_REQUESTS = (("single-57", (1, 57)), ("single-900", (1, 900)),
+                       ("single-1984", (1, 1984)), ("batch4x512", (4, 512)))
+WIDTH_PATH_MODELS = (("gptj", "6b", ("single-57", "single-900", "single-1984", "batch4x512")),
+                     ("gpt_neox", "20b", ("single-1984", "batch4x512")),
+                     ("opt", "2.7b", ("single-1984", "batch4x512")))
+# train_batch() on OPT-2.7B (the one of the three whose fp32 masters, AdamW
+# moments and grads fit one card at ZeRO 0): phase 6's engine config at the
+# batch that fits 80 GB at seq 2048
+WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ = 4, 2048
+WIDTH_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_batch_size=WIDTH_TRAIN_BATCH)
+
+
+def width_path_prefill_shapes():
+    """{(family, size): (config, [(batch, prompt bucket)])} of every flash
+    prefill phase 10's ``generate()`` calls run, by the engine's own bucket
+    rule against ``max_tokens - WIDTH_PATH_NEW``."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import bucket_prompt_len
+    from deepspeed_tpu_torch.models.registry import MODEL_CONFIGS
+
+    icfg = DeepSpeedInferenceConfig.from_dict(WIDTH_PATH_CONFIG)
+    ceiling = icfg.max_tokens - WIDTH_PATH_NEW
+    requests = dict(WIDTH_PATH_REQUESTS)
+    return {(family, size): (MODEL_CONFIGS[family](size),
+                             sorted({(b, bucket_prompt_len(icfg, n, ceiling))
+                                     for b, n in (requests[r] for r in names)}))
+            for family, size, names in WIDTH_PATH_MODELS}
+
+
+def width_train_model_config():
+    """Phase 10's training model: OPT-2.7B at full width and depth with
+    phase 6's choices (flash attention, no remat, the CE forward kernel)."""
+    from deepspeed_tpu_torch.models import opt_config
+
+    return opt_config("2.7b", attention_impl="flash", remat=False, fused_ce=True,
+                      fused_ce_impl="pallas")
 
 
 def phase_width_kernels(torch, F):
-    """The flash forward (with lse), the flash backward and the block-sparse
-    forward and backward against their plain versions at head_dim 32, 80, 96
-    and 256 (``WIDTHS``, each at a preset's head count): bf16 and fp32,
-    fp16 at one shape; the flash forward causal at s 2048, with GQA and with
-    s_q < s_kv; the backward causal at s 1024 and with GQA and s_q < s_kv;
-    the block-sparse kernels at s 1024 with the fixed pattern of 64-token
-    blocks (and, at head_dim 256, phase 9's 32-token blocks). Each case is
-    timed beside its plain version, its bound and SDPA (for the block-sparse
-    kernels: with the layout's token mask)."""
+    """The flash forward, the flash backward and the block-sparse forward
+    and backward against their plain versions at head_dim 32, 80, 96 and 256
+    (``WIDTHS``, each at a preset's head count): bf16 and fp32, fp16 at one
+    shape (80, 96, 256); the flash forward (with lse) causal at s 2048, with
+    GQA, with s_q < s_kv and at s_q 1000 < s_kv 1536 with GQA, and in bf16 at
+    every prefill shape of phase 10 (no lse) and OPT-2.7B's training shape;
+    the backward causal at s 1024, with GQA and s_q < s_kv, and at the
+    training shape; the block-sparse kernels at s 1024 with the fixed pattern
+    of 64-token blocks (and, at head_dim 256, phase 9's 32-token blocks).
+    Each case is timed beside its plain version, its bound and SDPA (for the
+    block-sparse kernels: with the layout's token mask); a case on the wgmma
+    route also holds the wmma route forced at its shape against the plain
+    version and times the two in turns. Returns the cases and the (batch,
+    seq, heads, kv heads, head_dim) of phase 10's prefills and training step
+    held here."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops import sparse_attention as SA
@@ -1141,37 +1247,60 @@ def phase_width_kernels(torch, F):
                     [TOL_FP32[0] + TOL_FP32[1] * r.float().abs() for r in refs])
         return f"{ATOL_16:g} + rounding bound", [ATOL_16 + b for b in bounds]
 
-    def record(kind, r, flops, n_bytes, kernel, plain, library, iters=10):
+    def record(kind, r, flops, n_bytes, kernel, plain, library, iters=10, old=None):
+        """Times the case: with ``old`` (the wmma route forced at the same
+        shape) the kernel and the old route in turns."""
         peak = H100_FP32_FLOPS if r["dtype"] == "float32" else H100_BF16_FLOPS
         t_ops, t_bytes = flops / peak, n_bytes / H100_BYTES
-        r.update(ms=time_ms(kernel, iters), plain_ms=time_ms(plain, 2),
+        ms, old_ms = route_turns(kernel, old, iters) if old else (time_ms(kernel, iters), None)
+        r.update(ms=ms, old_route_ms=old_ms, plain_ms=time_ms(plain, 2),
                  library_ms=time_ms(library, iters), bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops >= t_bytes else "bytes", flops=flops,
                  bytes=n_bytes)
         r["tflops"] = flops / r["ms"] / 1e9
-        log(f"  {kind} {r['case']:22s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
-            f"({r['limit_use']:.2f} of the limit)  kernel {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
+        was = "" if old_ms is None else f" (wmma route {old_ms:.4f} ms)"
+        log(f"  {kind} {r['case']:26s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
+            f"({r['limit_use']:.2f} of the limit)  {r.get('kernel_route') or ''} {r['ms']:.4f} ms"
+            f"{was}  plain {r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s")
         out[kind].append(r)
 
     def sdpa_mask(s_q, s_kv):
         return (torch.arange(s_kv, device="cuda")[None, :]
                 <= torch.arange(s_q, device="cuda")[:, None] + (s_kv - s_q))
 
+    paths = width_path_prefill_shapes()
+    checked = {"prefill": set(), "train": set(), "train_bwd": set()}
     for d, h, preset in WIDTHS:
-        dtypes = [torch.bfloat16, torch.float32] + ([torch.float16] if d == 80 else [])
+        dtypes = [torch.bfloat16, torch.float32] + ([torch.float16] if d != 32 else [])
         for dtype in dtypes:
             tag = lambda name: f"d{d}-{name}"
-            # -- flash forward with lse -------------------------------------------
-            fwd_cases = [("causal-s2048", 1, 2048, 2048, h, h, True)]
+            # -- flash forward ----------------------------------------------------
+            # (name, b, s_q, s_kv, heads, kv_heads, causal, lse)
+            fwd_cases = [("causal-s2048", 1, 2048, 2048, h, h, True, True)]
             if dtype != torch.float16:
-                fwd_cases += [("gqa-s1024", 1, 1024, 1024, h, max(1, h // 4), True),
-                              ("sq256<skv1024", 1, 256, 1024, h, h, True)]
-            for name, b, s_q, s_kv, hq, kvh, causal in fwd_cases:
+                fwd_cases += [("gqa-s1024", 1, 1024, 1024, h, max(1, h // 4), True, True),
+                              ("sq256<skv1024", 1, 256, 1024, h, h, True, True),
+                              ("gqa-sq1000<skv1536", 1, 1000, 1536, h, max(1, h // 4), True,
+                               True)]
+            if dtype == torch.bfloat16:
+                # phase 10's prefills (no lse) and OPT-2.7B's training forward
+                for (family, size), (cfg, shapes) in paths.items():
+                    if cfg.head_dim == d:
+                        fwd_cases += [(f"{family}-{size}-b{b}-s{s}", b, s, s, cfg.n_heads,
+                                       cfg.kv_heads, True, False) for b, s in shapes]
+                if d == width_train_model_config().head_dim:
+                    tc = width_train_model_config()
+                    fwd_cases.append((f"opt-train-b{WIDTH_TRAIN_BATCH}-s{WIDTH_TRAIN_SEQ}",
+                                      WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ, WIDTH_TRAIN_SEQ,
+                                      tc.n_heads, tc.kv_heads, True, True))
+            for name, b, s_q, s_kv, hq, kvh, causal, with_lse in fwd_cases:
                 q = rnd(b, s_q, hq, d).to(dtype)
                 k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
-                o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+                call = lambda route=None: flash_attention_fwd(q, k, v, causal=causal,
+                                                              return_lse=with_lse, _route=route)
+                got = call()
+                o, lse = got if with_lse else (got, None)
                 ref, ref_lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
                 torch.cuda.synchronize()
                 bound = None if dtype == torch.float32 else rounding_bound(q, k, v, ref, causal)
@@ -1179,48 +1308,83 @@ def phase_width_kernels(torch, F):
                 diff = (o.float() - ref.float()).abs()
                 label = f"flash fwd {tag(name)} {dtype}"
                 use = check_limit(label, diff, limit, tol)
-                lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
-                                      1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+                lse_use = None
+                if with_lse:
+                    lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
+                                          1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
+                route = attention_route(dtype, d, "fwd")
+                old = None
+                if route == "wgmma":
+                    # the wmma kernel at the same shape holds the plain version too
+                    old_o = call("wmma")
+                    old_o = old_o[0] if with_lse else old_o
+                    torch.cuda.synchronize()
+                    use = max(use, check_limit(f"{label} (wmma route)",
+                                               (old_o.float() - ref.float()).abs(), limit, tol))
+                    del old_o
+                    old = lambda: call("wmma")
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 mask = sdpa_mask(s_q, s_kv) if s_q != s_kv else None
+                main_path = "train" if "train" in name else "prefill" if "-b" in name else None
+                if main_path:
+                    checked[main_path].add((b, s_q, hq, kvh, d))
                 r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
                          s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
-                         kernel_route=attention_route(dtype, d),
+                         lse=with_lse, main_path=main_path, kernel_route=route,
                          max_abs_err=diff.max().item(), limit_use=use,
-                         lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+                         lse_max_abs_err=(lse - ref_lse).abs().max().item() if with_lse else None,
                          lse_limit_use=lse_use, tolerance=tol)
-                del diff, limit, bound, ref, ref_lse
+                del diff, limit, bound, ref, ref_lse, got, o, lse
                 record("flash_fwd", r, attention_flops(b, s_q, s_kv, hq, d, causal),
                        (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-                       + lse.numel() * 4,
-                       lambda: flash_attention_fwd(q, k, v, causal=causal, return_lse=True),
+                       + (b * hq * s_q * 4 if with_lse else 0),
+                       call,
                        lambda: flash_attention_reference(q, k, v, causal=causal,
-                                                         return_lse=True),
+                                                         return_lse=with_lse),
                        lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-                           enable_gqa=kvh != hq))
-                del q, k, v, o, lse, qt, kt, vt
+                           enable_gqa=kvh != hq), old=old)
+                del q, k, v, qt, kt, vt, call
 
             # -- flash backward ---------------------------------------------------
             bwd_cases = [("causal-s1024", 1, 1024, 1024, h, h, True)]
             if dtype != torch.float16:
-                bwd_cases.append(("gqa-sq256<skv512", 1, 256, 512, h, max(1, h // 4), True))
+                bwd_cases += [("gqa-sq256<skv512", 1, 256, 512, h, max(1, h // 4), True),
+                              ("gqa-sq1000<skv1536", 1, 1000, 1536, h, max(1, h // 4), True)]
+            if dtype == torch.bfloat16 and d == width_train_model_config().head_dim:
+                tc = width_train_model_config()
+                bwd_cases.append((f"opt-train-b{WIDTH_TRAIN_BATCH}-s{WIDTH_TRAIN_SEQ}",
+                                  WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ, WIDTH_TRAIN_SEQ,
+                                  tc.n_heads, tc.kv_heads, True))
             for name, b, s_q, s_kv, hq, kvh, causal in bwd_cases:
                 q = rnd(b, s_q, hq, d).to(dtype)
                 k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
                 o, lse = flash_attention_reference(q, k, v, causal=causal, return_lse=True)
                 do = rnd(b, s_q, hq, d).to(dtype)
                 args = (q, k, v, o, lse, do)
-                grads = flash_attention_bwd(*args, causal=causal)
+                call = lambda route=None: flash_attention_bwd(*args, causal=causal, _route=route)
+                grads = call()
                 refs = flash_attention_bwd_reference(*args, causal=causal)
                 torch.cuda.synchronize()
                 bounds = bwd_rounding_bound(*args, refs, causal=causal)
                 tol, lims = limits(dtype, refs, bounds or [None] * 3)
-                uses = {g: check_limit(f"flash bwd {tag(name)} {dtype} {g}",
-                                       (grads[i].float() - refs[i].float()).abs(), lims[i], tol)
+                label = f"flash bwd {tag(name)} {dtype}"
+                uses = {g: check_limit(f"{label} {g}", (grads[i].float() - refs[i].float()).abs(),
+                                       lims[i], tol)
                         for i, g in enumerate(("dq", "dk", "dv"))}
                 errs = {g: (grads[i].float() - refs[i].float()).abs().max().item()
                         for i, g in enumerate(("dq", "dk", "dv"))}
+                route = attention_route(dtype, d, "bwd")
+                old = None
+                if route == "wgmma":
+                    old_grads = call("wmma")
+                    torch.cuda.synchronize()
+                    for i, g in enumerate(("dq", "dk", "dv")):
+                        uses[g] = max(uses[g], check_limit(
+                            f"{label} {g} (wmma route)",
+                            (old_grads[i].float() - refs[i].float()).abs(), lims[i], tol))
+                    del old_grads
+                    old = lambda: call("wmma")
                 del bounds, lims, refs, grads
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
                 mask = sdpa_mask(s_q, s_kv) if s_q != s_kv else None
@@ -1228,19 +1392,22 @@ def phase_width_kernels(torch, F):
                                                       is_causal=causal and mask is None,
                                                       enable_gqa=kvh != hq)
                 gt = do.transpose(1, 2)
+                main_path = "train" if "train" in name else None
                 r = dict(case=tag(name), preset=preset, dtype=str(dtype).split(".")[1], b=b,
                          s_q=s_q, s_kv=s_kv, h=hq, kv_heads=kvh, d=d, causal=causal,
-                         kernel_route=attention_route(dtype, d),
+                         main_path=main_path, kernel_route=route,
                          max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
                          limit_use=max(uses.values()), limit_use_by_grad=uses, tolerance=tol)
                 record("flash_bwd", r, attention_flops(b, s_q, s_kv, hq, d, causal) // 4 * 10,
                        (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel())
                        * q.element_size() + lse.numel() * 4,
-                       lambda: flash_attention_bwd(*args, causal=causal),
+                       call,
                        lambda: flash_attention_bwd_reference(*args, causal=causal),
-                       lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
-                del q, k, v, o, lse, do, args, qt, kt, vt, sdpa, gt
-
+                       lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True),
+                       old=old)
+                if main_path:
+                    checked["train_bwd"].add((b, s_q, hq, kvh, d))
+                del q, k, v, o, lse, do, args, qt, kt, vt, sdpa, gt, call
             # -- block-sparse forward and backward --------------------------------
             blocks = [64] + ([WIDTH_SPARSE["sparse_block"]] if d == 256 else [])
             if dtype == torch.float16:
@@ -1307,10 +1474,14 @@ def phase_width_kernels(torch, F):
                        lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
                 del q, k, v, do, o, lse, ref, ref_lse, mask, qt, kt, vt, sdpa, gt
     worst = max(r["limit_use"] for rs in out.values() for r in rs)
+    new = [r for r in out["flash_fwd"] + out["flash_bwd"]
+           if r["kernel_route"] == "wgmma" and r["old_route_ms"] is not None]
     log(f"  head dims {[w[0] for w in WIDTHS]}: {sum(len(v) for v in out.values())} cases, "
-        f"each within its limit (worst {worst:.2f} of a limit)")
+        f"each within its limit (worst {worst:.2f} of a limit); {len(new)} on the wgmma route, "
+        f"worst {max(r['limit_use'] for r in new):.2f} of a limit, each timed against the wmma "
+        f"route in turns")
     torch.cuda.empty_cache()
-    return out
+    return out, checked
 
 
 def phase_widths(torch):
@@ -1433,8 +1604,245 @@ def phase_widths(torch):
             cpu.destroy()
             del card, cpu
             torch.cuda.empty_cache()
+        res["bf16"] = width_bf16_card_vs_cpu(torch, make, label, rng)
         res["seconds"] = time.perf_counter() - t0
         out[f"{family}-{size}"] = res
+    return out
+
+
+BF16_U = 2.0 ** -8   # bf16's unit roundoff
+
+
+def bf16_limit(cpu, ref):
+    """Per-element bound on |card - CPU port| for a bf16 run of the same
+    function on the same weights, ``ref`` being the fp32 evaluation (on the
+    card, of the bf16-rounded weights). Each side is ``ref`` plus its own
+    bf16 rounding error; the CPU port's, E = max |cpu - ref|, measures that
+    error's size. The card sums in other orders (its GEMMs' tiles, the flash
+    kernels' kv tiles), so its error is taken as up to 2 E, and it rounds
+    once more where the CPU port does not (the flash kernels round P and dS
+    to bf16: the scale of u |ref|). So |card - cpu| <= |card - ref| +
+    |cpu - ref| <= 3 E + u |ref|. A grad whose fp32 value is zero by
+    structure (a k bias: softmax ignores a shift shared by a row's logits)
+    is rounding noise on both sides, which is what the 2 E allows for."""
+    return 3 * (cpu - ref).abs().max() + BF16_U * ref.abs()
+
+
+def width_bf16_card_vs_cpu(torch, make, label, rng):
+    """Phase 9's bf16 runs of one preset (``make``: its config at
+    WIDTH_LAYERS layers): the card's bf16 prefill logits of a 128-token
+    prompt against the CPU port's on the same bf16 weights, and one bf16
+    forward + backward at b 1 x s 128 with flash attention (fp32 masters)
+    against the CPU port's on the same masters: its loss and every grad;
+    each within ``bf16_limit`` of an fp32 evaluation on the card. The card's
+    runs launch the flash kernels on the route ``attention_route`` gives
+    (the forward on wgmma; the backward too at head_dim 80 and 96); the
+    CPU port's launch none."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, InferenceEngine
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.decoding import forward_with_cache, init_cache
+    from deepspeed_tpu_torch.models.layers import flatten_tree, tree_map
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import attention_route
+
+    cfg = make()
+    bwd_route = attention_route(torch.bfloat16, cfg.head_dim, "bwd")
+    names = ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_bwd",
+             "flash_attention_bwd_wgmma")
+    out = {"tolerance": "3 max|cpu - fp32| + 2^-8 |fp32| per element (bf16_limit)",
+           "bwd_route": bwd_route}
+
+    def check(what, card, cpu, ref):
+        lim = torch.clamp_min(bf16_limit(cpu, ref), 1e-30)
+        diff = (card - cpu).abs()
+        use = (diff / lim).max().item()
+        if not use <= 1.0:
+            raise AssertionError(f"{label} bf16 {what}: card vs CPU max abs err "
+                                 f"{diff.max().item()}, {use:.2f} of the limit (CPU vs fp32 "
+                                 f"{(cpu - ref).abs().max().item()})")
+        return {"max_abs_err": diff.max().item(), "limit_use": use,
+                "card_vs_fp32": (card - ref).abs().max().item(),
+                "cpu_vs_fp32": (cpu - ref).abs().max().item(), "max_abs": ref.abs().max().item()}
+
+    def launched(before):
+        return {k: LAUNCH_COUNTS[k] - before[k] for k in names}
+
+    # -- generate's prefill ----------------------------------------------------------
+    config = {"dtype": "bfloat16", "max_tokens": 256, "seed": 3}
+    card = deepspeed_tpu_torch.init_inference(CausalLM(make()), config)
+    engines = {"card": card,
+               "cpu": InferenceEngine(CausalLM(make()), DeepSpeedInferenceConfig.from_dict(config),
+                                      device="cpu", model_parameters=tree_map(
+                                          lambda t: t.detach().cpu(), card.params)),
+               "fp32": InferenceEngine(CausalLM(make()), DeepSpeedInferenceConfig.from_dict(
+                   dict(config, dtype="float32")), device="cuda", model_parameters=tree_map(
+                       lambda t: t.detach().float(), card.params))}
+    ids = torch.tensor(rng.randint(0, cfg.vocab_size, (1, 128)))
+    logits = {}
+    for name, eng in engines.items():
+        before = dict(LAUNCH_COUNTS)
+        with torch.inference_mode():
+            cache = init_cache(eng.module.config, 1, 136, eng.dtype, device=eng.device)
+            logits[name] = forward_with_cache(eng.module, eng.params, ids.to(eng.device), cache,
+                                              0, 136, prefill=True).float().cpu()
+        got = launched(before)
+        if name != "fp32":
+            n = WIDTH_LAYERS if name == "card" else 0
+            want = dict(zip(names, (n, n, 0, 0)))
+            if got != want:
+                raise AssertionError(f"{label} bf16 prefill on the {name}: launches {got}, "
+                                     f"expected {want}")
+    out["prefill_logits"] = check("prefill logits", logits["card"], logits["cpu"], logits["fp32"])
+    for eng in engines.values():
+        eng.destroy()
+    del card, engines
+    torch.cuda.empty_cache()
+
+    # -- one training forward + backward ---------------------------------------------
+    ds = {"train_batch_size": 1, "seed": 5, "gradient_clipping": 1.0, "bf16": {"enabled": True},
+          "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    batch = {"input_ids": rng.randint(0, cfg.vocab_size, (1, 128))}
+    losses, grads = {}, {}
+    card, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(make(attention_impl="flash")),
+                                              config=ds)
+    masters = tree_map(lambda t: t.detach().cpu(), card.params)
+    for name in ("card", "fp32", "cpu"):
+        if name == "card":
+            eng = card
+        elif name == "fp32":   # fp32 on the card, on the masters rounded to bf16
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=CausalLM(make(attention_impl="flash")),
+                config={k: v for k, v in ds.items() if k != "bf16"},
+                model_parameters=tree_map(lambda t: t.to(torch.bfloat16).float(), masters))
+        else:
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=CausalLM(make(attention_impl="flash")), config=ds, device="cpu",
+                model_parameters=masters)
+        before = dict(LAUNCH_COUNTS)
+        losses[name] = torch.tensor(eng.forward(batch).item(), dtype=torch.float64)
+        eng.backward()
+        got = launched(before)
+        if name != "fp32":
+            n = WIDTH_LAYERS if name == "card" else 0
+            want = dict(zip(names, (n, n, n, n if bwd_route == "wgmma" else 0)))
+            if got != want:
+                raise AssertionError(f"{label} bf16 training step on the {name}: launches "
+                                     f"{got}, expected {want}")
+        grads[name] = {k: p.grad.detach().float().cpu()
+                       for k, p in flatten_tree(eng.params).items() if p.grad is not None}
+        eng.destroy()
+        del eng
+        torch.cuda.empty_cache()
+    del card
+    out["loss"] = check("loss", losses["card"], losses["cpu"], losses["fp32"])
+    out["loss"]["values"] = {k: v.item() for k, v in losses.items()}
+    per_grad = {k: check(f"grad {k}", grads["card"][k], grads["cpu"][k], grads["fp32"][k])
+                for k in sorted(grads["cpu"])}
+    worst = max(per_grad, key=lambda k: per_grad[k]["limit_use"])
+    out["grads_checked"] = len(per_grad)
+    out["worst_grad"] = dict(per_grad[worst], name=worst)
+    log(f"  {label} bf16 (forward wgmma, backward {bwd_route}): prefill logits err "
+        f"{out['prefill_logits']['max_abs_err']:.3e} ({out['prefill_logits']['limit_use']:.2f} "
+        f"of the limit; CPU vs fp32 {out['prefill_logits']['cpu_vs_fp32']:.3e}, card vs fp32 "
+        f"{out['prefill_logits']['card_vs_fp32']:.3e}); loss card {losses['card'].item():.6f} "
+        f"cpu {losses['cpu'].item():.6f} fp32 {losses['fp32'].item():.6f} "
+        f"({out['loss']['limit_use']:.2f}); {len(per_grad)} grads, worst {worst} "
+        f"{per_grad[worst]['limit_use']:.2f} of the limit")
+    return out
+
+
+def phase_width_paths(torch, checked):
+    """Phase 10: the head dims 80, 96 and 256 on their bf16 main paths at full
+    width and depth. ``init_inference`` (random weights from a seed, bf16) on
+    GPT-J-6B, GPT-NeoX-20B and OPT-2.7B (``WIDTH_PATH_MODELS``), each
+    answering its requests through ``generate()`` (WIDTH_PATH_NEW greedy
+    tokens, each request cold and then warm, which must repeat the stream),
+    with prefill ms and decode ms/token from ``last_timing``; every prefill
+    launches one flash forward a layer, all on the wgmma route, at a shape
+    phase 2 held. One GPT-J-6B prefill of the 1984-token prompt under the
+    profiler. Then phase 6's training loop on OPT-2.7B (``phase_training``
+    with ``width``): 32 flash forwards, 32 flash backwards and one CE
+    forward a step, all on the wgmma route. ``checked``: the shapes phase 2
+    held (``"prefill"``: (batch, bucket, heads, kv heads, head_dim);
+    ``"flash"`` and ``"ce"`` as ``phase_training`` reads them)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+
+    requests = dict(WIDTH_PATH_REQUESTS)
+    rng = np.random.RandomState(10)
+    out = {"generate": {}}
+    for (family, size), (cfg, _) in width_path_prefill_shapes().items():
+        names = next(n for f, sz, n in WIDTH_PATH_MODELS if (f, sz) == (family, size))
+        L, label = cfg.n_layers, f"{family}-{size}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference(CausalLM(cfg), dict(WIDTH_PATH_CONFIG))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        log(f"  init {label} ({cfg.num_params() / 1e9:.2f} B params, {L} layers, {cfg.n_heads} "
+            f"heads of {cfg.head_dim}, bf16) in {init_s:.3f} s")
+        runs, prompts = [], {}
+        for name in names:
+            b, n = requests[name]
+            ids = rng.randint(0, cfg.vocab_size, (b, n))
+            prompts[name] = ids
+            bucket = eng._bucket_prompt_len(n, eng.config.max_tokens - WIDTH_PATH_NEW)
+            if (b, bucket, cfg.n_heads, cfg.kv_heads, cfg.head_dim) not in checked["prefill"]:
+                raise AssertionError(f"{label} {name}: prefill shape {(b, bucket)} was not held "
+                                     f"against the plain version in phase 2")
+            streams = []
+            for attempt in ("cold", "warm"):
+                before = dict(LAUNCH_COUNTS)
+                t = time.perf_counter()
+                toks = eng.generate(ids, max_new_tokens=WIDTH_PATH_NEW, greedy=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launched = {k: LAUNCH_COUNTS[k] - before[k]
+                            for k in ("flash_attention_fwd", "flash_attention_fwd_wgmma")}
+                if launched != {"flash_attention_fwd": L, "flash_attention_fwd_wgmma": L}:
+                    raise AssertionError(f"{label} {name}: flash launches {launched}, expected "
+                                         f"{L}, all on the wgmma route")
+                toks = toks.cpu()
+                if toks.shape != (b, n + WIDTH_PATH_NEW) or not torch.equal(
+                        toks[:, :n], torch.as_tensor(ids, dtype=toks.dtype)):
+                    raise AssertionError(f"{label} {name}: output {tuple(toks.shape)} or its "
+                                         f"prompt is wrong")
+                if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                    raise AssertionError(f"{label} {name}: token outside the vocab")
+                sec = eng.last_timing.seconds()
+                r = dict(request=name, attempt=attempt, batch=b, prompt=n, bucket=bucket,
+                         new_tokens=WIDTH_PATH_NEW, prefill_ms=sec["prefill"] * 1e3,
+                         decode_ms_per_token=sec["decode"] * 1e3 / (WIDTH_PATH_NEW - 1),
+                         wall_s=wall, flash_launches=launched)
+                log(f"  {label} {name + '/' + attempt:18s} b={b} prompt {n:4d} (bucket "
+                    f"{bucket:4d})  prefill {r['prefill_ms']:.2f} ms  decode "
+                    f"{r['decode_ms_per_token']:.3f} ms/token  wall {wall:.2f} s  flash "
+                    f"{launched['flash_attention_fwd_wgmma']} of {L} on wgmma")
+                runs.append(r)
+                streams.append(toks)
+            if not torch.equal(*streams):
+                raise AssertionError(f"{label} {name}: the warm request gave another stream")
+        res = {"layers": L, "params": cfg.num_params(), "d_model": cfg.d_model,
+               "heads": cfg.n_heads, "head_dim": cfg.head_dim, "init_s": init_s,
+               "requests": runs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if family == "gptj":
+            warm = next(r for r in runs if r["request"] == "single-1984" and
+                        r["attempt"] == "warm")
+            log(f"  {label}: the prefill of the 1984-token prompt under the profiler")
+            res["prefill_profile"] = profile_prefill(torch, eng, prompts["single-1984"],
+                                                     WIDTH_PATH_NEW, warm["prefill_ms"])
+        out["generate"][label] = res
+        eng.destroy()
+        del eng
+        torch.cuda.empty_cache()
+    out["generate_launches"] = dict(LAUNCH_COUNTS)
+    log(f"  launches on phase 10's generate path: {out['generate_launches']}")
+    log("  train_batch on OPT-2.7B")
+    out["train"] = phase_training(torch, checked, width=True)
     return out
 
 
@@ -1699,15 +2107,17 @@ def model_flops_per_step(cfg, tokens, seq, pairs=None):
             + 12 * cfg.n_layers * cfg.head_dim * cfg.n_heads * pairs * (tokens // seq))
 
 
-def phase_training(torch, checked, sparse=False):
-    """Phase 6 (or, with ``sparse``, phase 8): ``initialize`` ->
-    ``train_batch`` on full GPT-2 medium at bench.py's shape and config (phase
-    8: with block-sparse attention), on one fixed batch drawn from seed 0:
-    TRAIN_WARMUP warm-up steps, then TRAIN_STEPS timed steps, each ended by
-    a host read of its loss; the launch counts read around every step; one
-    more step under torch.profiler. Phase 8 also takes one ``eval_batch``
-    (forward kernels only). The attention and CE shapes must have been held
-    against the plain versions in phase 2."""
+def phase_training(torch, checked, sparse=False, width=False):
+    """Phase 6 (or, with ``sparse``, phase 8; with ``width``, phase 10's
+    step): ``initialize`` -> ``train_batch`` on full GPT-2 medium at
+    bench.py's shape and config (phase 8: with block-sparse attention; phase
+    10: full OPT-2.7B at WIDTH_TRAIN_BATCH x WIDTH_TRAIN_SEQ with the same
+    engine config), on one fixed batch drawn from seed 0: TRAIN_WARMUP
+    warm-up steps, then TRAIN_STEPS timed steps, each ended by a host read
+    of its loss; the launch counts read around every step; one more step
+    under torch.profiler. Phase 8 also takes one ``eval_batch`` (forward
+    kernels only). The attention and CE shapes must have been held against
+    the plain versions in phase 2."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -1715,26 +2125,32 @@ def phase_training(torch, checked, sparse=False):
     from deepspeed_tpu_torch.models.transformer import _block_sparse_attn
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
 
-    cfg = train_sparse_model_config() if sparse else train_model_config()
+    if width:
+        cfg, n_batch, seq, config = (width_train_model_config(), WIDTH_TRAIN_BATCH,
+                                     WIDTH_TRAIN_SEQ, WIDTH_TRAIN_CONFIG)
+    else:
+        cfg = train_sparse_model_config() if sparse else train_model_config()
+        n_batch, seq, config = TRAIN_BATCH, TRAIN_SEQ, TRAIN_CONFIG
+    phase = 10 if width else 8 if sparse else 6
     L = cfg.n_layers
-    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
+    shape = (n_batch, seq, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
     pairs = None
     if sparse:
-        layout = _block_sparse_attn(cfg, TRAIN_SEQ, torch.device("cuda")).layout
-        pairs = kept_pairs(layout, cfg.sparse_block, TRAIN_SEQ, TRAIN_SEQ, cfg.causal)
+        layout = _block_sparse_attn(cfg, seq, torch.device("cuda")).layout
+        pairs = kept_pairs(layout, cfg.sparse_block, seq, seq, cfg.causal)
         shape = shape + (layout.tobytes(),)
     if shape not in checked["block_sparse" if sparse else "flash"] or (
-            TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.vocab_size) not in checked["ce"]:
-        raise AssertionError(f"phase {8 if sparse else 6}'s shapes {shape[:5]} were not held "
-                             f"against the plain versions in phase 2")
+            n_batch * seq, cfg.d_model, cfg.vocab_size) not in checked["ce"]:
+        raise AssertionError(f"phase {phase}'s shapes {shape[:5]} were not held against the "
+                             f"plain versions in phase 2")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=TRAIN_CONFIG)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=config)
     torch.cuda.synchronize()
-    log(f"  init GPT-2 medium ({cfg.num_params() / 1e6:.1f} M params, fp32 masters, bf16 "
+    name = "OPT-2.7B" if width else "GPT-2 medium"
+    log(f"  init {name} ({cfg.num_params() / 1e6:.1f} M params, fp32 masters, bf16 "
         f"compute) in {time.perf_counter() - t0:.3f} s")
-    batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size,
-                                                            (TRAIN_BATCH, TRAIN_SEQ))}
+    batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size, (n_batch, seq))}
     # every CE launch, flash launch and block-sparse launch of the step on
     # the TMA + wgmma route
     if sparse:
@@ -1776,17 +2192,20 @@ def phase_training(torch, checked, sparse=False):
     timed = sorted(step_ms[TRAIN_WARMUP:])
     median_ms = timed[len(timed) // 2] if len(timed) % 2 else \
         (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops_per_step(cfg, tokens, TRAIN_SEQ, pairs)
-    if sparse:
+    tokens = n_batch * seq
+    flops = model_flops_per_step(cfg, tokens, seq, pairs)
+    if width:
+        model = "opt-2.7b (registry: vocab 50272, flash, no remat, fused CE pallas)"
+        formula = "6 N T + 12 L d_head h (causal pairs) (T / seq)"
+    elif sparse:
         model = ("gpt2-medium (bench.py: vocab 50304, no remat, fused CE pallas) with "
                  "block-sparse attention: fixed, block 128, 4 local, 1 global")
         formula = "6 N T + 12 L d_head h (the layout's kept pairs) (T / seq)"
     else:
         model = "gpt2-medium (bench.py: vocab 50304, flash, no remat, fused CE pallas)"
         formula = "6 N T + 12 L d_head h (causal pairs) (T / seq)"
-    out = {"model": model, "params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "config": TRAIN_CONFIG, "losses": losses, "step_ms": step_ms,
+    out = {"model": model, "params": cfg.num_params(), "batch": n_batch, "seq": seq,
+           "config": config, "losses": losses, "step_ms": step_ms,
            "warmup_steps": TRAIN_WARMUP, "step_ms_median": median_ms,
            "tokens_per_s": tokens / median_ms * 1e3, "peak_gib": peak,
            "launches": launches, "launches_per_step": expected,
@@ -1794,7 +2213,7 @@ def phase_training(torch, checked, sparse=False):
            "mfu_vs_989_tflops": flops / (median_ms / 1e3) / H100_BF16_FLOPS}
     if sparse:
         out.update(eval_loss=eval_loss, attention_pairs_per_head=pairs,
-                   causal_pairs_per_head=TRAIN_SEQ * (TRAIN_SEQ + 1) // 2)
+                   causal_pairs_per_head=seq * (seq + 1) // 2)
     log(f"  step ms median {median_ms:.1f} over {TRAIN_STEPS} steps; tokens/s "
         f"{out['tokens_per_s']:.0f}; model FLOPs/step ({out['model_flops_formula']}) "
         f"{flops / 1e12:.2f} T = {out['mfu_vs_989_tflops']:.3f} of 989 TFLOP/s; peak device "
@@ -2325,9 +2744,9 @@ def main():
     builders = build_all()
     build_s = time.perf_counter() - t
     for b in builders:
-        regs = [l.strip() for l in b.build_log.splitlines()
-                if "registers" in l or "spill" in l or "Performance" in l]
-        log(f"  {b.NAME}: nvcc {b.build_seconds:.1f} s; ptxas: {' | '.join(regs)}")
+        n_entries, spills = ptxas_spills(b.build_log)
+        log(f"  {b.NAME}: nvcc {b.build_seconds:.1f} s; ptxas: {n_entries} entry functions, "
+            f"spill stores in {len(spills)}: {spills}")
     log(f"  build phase {build_s:.1f} s")
 
     log("phase 2: kernels against their plain versions")
@@ -2345,9 +2764,10 @@ def main():
     torch.cuda.empty_cache()
     train_cases = phase_train_kernels(torch, F)
     sparse_cases, sparse_checked = phase_sparse_kernels(torch, F)
-    width_cases = phase_width_kernels(torch, F)
+    width_cases, width_checked = phase_width_kernels(torch, F)
     checked = {"flash": {(c["b"], c["s_q"], c["h"], c["kv_heads"], c["d"])
-                         for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]},
+                         for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]}
+               | (width_checked["train"] & width_checked["train_bwd"]),
                "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]},
                "block_sparse": sparse_checked}
 
@@ -2398,13 +2818,27 @@ def main():
     reset_launch_counts()
     widths = phase_widths(torch)
     widths_launches = dict(LAUNCH_COUNTS)
+    torch.cuda.empty_cache()
+
+    log("phase 10: head dims 80, 96 and 256 on their bf16 main paths at full width and depth "
+        "(generate() on GPT-J-6B, GPT-NeoX-20B, OPT-2.7B; train_batch() on OPT-2.7B, "
+        f"b{WIDTH_TRAIN_BATCH} x s{WIDTH_TRAIN_SEQ})")
+    reset_launch_counts()
+    t = time.perf_counter()
+    width_paths = phase_width_paths(torch, dict(checked, prefill=width_checked["prefill"]))
+    width_paths_s = time.perf_counter() - t
+    gptj_prefill = next(r["prefill_ms"] for r in width_paths["generate"]["gptj-6b"]["requests"]
+                        if (r["request"], r["attempt"]) == ("single-1984", "warm"))
+    torch.cuda.empty_cache()
     by_path = {"generate": launches, "serve": serving["launches"],
                "train": training["launches"],
                "quant_generate_int8": quant["int8"]["launches_generate"],
                "quant_serve_int8": quant["int8"]["serving"]["launches"],
                "quant_generate_int4": quant["int4"]["launches_generate"],
                "train_block_sparse": sparse_training["launches"],
-               "widths": widths_launches}
+               "widths": widths_launches,
+               "widths_generate": width_paths["generate_launches"],
+               "widths_train": width_paths["train"]["launches"]}
     path_kernels = {"generate": ("flash_attention_fwd",),
                     "serve": ("flash_attention_fwd", "paged_flash_decode"),
                     "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward"),
@@ -2415,15 +2849,19 @@ def main():
                     "train_block_sparse": ("block_sparse_attention_fwd",
                                            "block_sparse_attention_bwd", "fused_ce_forward"),
                     "widths": ("flash_attention_fwd", "flash_attention_bwd",
-                               "block_sparse_attention_fwd", "block_sparse_attention_bwd")}
+                               "block_sparse_attention_fwd", "block_sparse_attention_bwd"),
+                    "widths_generate": ("flash_attention_fwd",),
+                    "widths_train": ("flash_attention_fwd", "flash_attention_bwd",
+                                     "fused_ce_forward")}
     for path, names in path_kernels.items():
         for name in names:
             if by_path[path][name] == 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
-    # phases 4-7 run 16-bit attention at head_dim 128 and 64: every flash
-    # launch there takes the TMA + wgmma route
+    # phases 4-7 run 16-bit attention at head_dim 128 and 64, phase 10 at 80,
+    # 96 and 256 (its training at 80): every flash launch there takes the
+    # TMA + wgmma route
     for path in ("generate", "serve", "train", "quant_generate_int8", "quant_serve_int8",
-                 "quant_generate_int4"):
+                 "quant_generate_int4", "widths_generate", "widths_train"):
         for name in ("flash_attention_fwd", "flash_attention_bwd"):
             if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
                 raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
@@ -2431,6 +2869,7 @@ def main():
     # phases 6 and 8: every CE launch, and every block-sparse launch, on the
     # TMA + wgmma route
     for path, name in (("train", "fused_ce_forward"), ("train_block_sparse", "fused_ce_forward"),
+                       ("widths_train", "fused_ce_forward"),
                        ("train_block_sparse", "block_sparse_attention_fwd"),
                        ("train_block_sparse", "block_sparse_attention_bwd")):
         if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
@@ -2460,6 +2899,13 @@ def main():
         return {"wgmma": wgmma, "wmma": sum(c[name] for c in by_path.values()) - wgmma}
 
     ce_main = next(c for c in train_cases["ce"] if c["case"] == "train")
+    # the head dims' headline cases (a preset's heads, causal, bf16), by width
+    width_head = {kind: {f"d{c['d']}": {k: c[k] for k in (
+                      "case", "kernel_route", "ms", "old_route_ms", "library_ms", "bound_ms",
+                      "max_abs_err", "limit_use")}
+                         for c in width_cases[kind]
+                         if c["dtype"] == "bfloat16" and c["case"] == f"d{c['d']}-{case}"}
+                  for kind, case in (("flash_fwd", "causal-s2048"), ("flash_bwd", "causal-s1024"))}
     # the quantized matmul's headline: the serving decode's widest linear
     # (m 8 slots, k 4096, n 11008, bf16); "cases" holds every shape
     qmm_main = {bits: next(c for c in qmm_cases if c["bits"] == bits and c["main_path"]
@@ -2499,9 +2945,10 @@ def main():
                  f"the main paths)",
         "kernel_route": main_case["kernel_route"],
         "old_route_ms": main_case["old_route_ms"],
-        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64 and 128; wmma: the rest "
-                  "(fp32, head_dim 32/80/96/256); old_route_ms: the wmma kernel forced at the "
-                  "same shape, in turns",
+        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64, 80, 96, 128 and 256 (80 "
+                  "and 96 padded to 128 columns); wmma: the rest (fp32, head_dim 32); "
+                  "old_route_ms: the wmma kernel forced at the same shape, in turns",
+        "widths_bf16": width_head["flash_fwd"],
         "training_shape": f"b={TRAIN_BATCH} s={TRAIN_SEQ} h=16 d=64 causal bf16 with lse",
         "training_ms": fwd_train["ms"],
         "training_old_route_ms": fwd_train["old_route_ms"],
@@ -2535,10 +2982,14 @@ def main():
         "also_replaces": ["deepspeed_tpu/ops/pallas/flash_attention.py:538",
                           "deepspeed_tpu/ops/pallas/flash_attention.py:565",
                           "deepspeed_tpu/ops/pallas/flash_attention.py:591"],
-        "launches": training["launches"]["flash_attention_bwd"],
+        "launches": sum(c["flash_attention_bwd"] for c in by_path.values()),
         "launches_by_path": {p: c["flash_attention_bwd"] for p, c in by_path.items()},
         "launches_by_route": by_route("flash_attention_bwd"),
         "kernel_route": bwd_main["kernel_route"],
+        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64, 80, 96 and 128; wmma: the "
+                  "rest (fp32, head_dim 32 and 256); old_route_ms: the wmma kernels forced at "
+                  "the same shape, in turns",
+        "widths_bf16": width_head["flash_bwd"],
         "old_route_ms": bwd_main["old_route_ms"],
         "max_abs_err": bwd_main["max_abs_err"],
         "ms": bwd_main["ms"],
@@ -2663,8 +3114,10 @@ def main():
         f"(serve), {training['peak_gib']:.2f} GiB (train), {sparse_training['peak_gib']:.2f} "
         f"GiB (block-sparse train); train step {training['step_ms_median']:.1f} ms, "
         f"block-sparse {sparse_training['step_ms_median']:.1f} ms; phase 9 "
-        f"{sum(r['seconds'] for r in widths.values()):.1f} s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+        f"{sum(r['seconds'] for r in widths.values()):.1f} s; phase 10: OPT-2.7B step "
+        f"{width_paths['train']['step_ms_median']:.1f} ms ({width_paths['train']['peak_gib']:.2f} "
+        f"GiB), GPT-J-6B warm 1984-token prefill {gptj_prefill:.2f} ms, phase "
+        f"{width_paths_s:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))
     log(json.dumps({"serving": serving}))
@@ -2673,6 +3126,7 @@ def main():
     log(json.dumps({"training_block_sparse": sparse_training,
                     "train_block_sparse_card_vs_cpu": sparse_parity}))
     log(json.dumps({"widths": widths, "widths_launches": widths_launches}))
+    log(json.dumps({"width_paths": width_paths}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -33,11 +33,12 @@
 // bytes (q, k, v, o, dO, lse in, dq, dk, dv out) take about 0.05 ms at 3.35 TB/s.
 //
 // Two routes, as in the forward (ops/cuda/flash_attention.py
-// attention_route): the wgmma route for bf16 and fp16 at head_dim 64 and 128
-// (ds_flash_attention_bwd_wgmma at the end of this file: the kernels of
-// csrc/flash_bwd_sm90.cuh, which the block-sparse backward shares, over the
-// dense causal range) and the wmma route below (ds_flash_attention_bwd) for
-// the rest.
+// attention_route): the wgmma route for bf16 and fp16 at head_dim 64, 80, 96
+// and 128 (ds_flash_attention_bwd_wgmma at the end of this file: the kernels
+// of csrc/flash_bwd_sm90.cuh, which the block-sparse backward shares, over
+// the dense causal range) and the wmma route below (ds_flash_attention_bwd)
+// for the rest: fp32, and 16-bit at head_dim 32 and 256 (whose dK and dV for
+// 64 kv rows would take 256 fp32 registers a thread).
 //
 // The wmma route's design (a simple right kernel, like the forward's): 4
 // warps per block, each owning 16 rows of the block's tile end to end, so
@@ -613,7 +614,7 @@ extern "C" int ds_flash_attention_bwd(
 }
 
 // ===================================================================================
-// The wgmma route: bf16 / fp16 at head_dim 64 and 128, on TMA and wgmma: the
+// The wgmma route: bf16 / fp16 at head_dim 64, 80, 96 and 128, on TMA and wgmma: the
 // kernels of csrc/flash_bwd_sm90.cuh (a delta / lse2 pass, the dQ kernel and
 // the dK/dV kernel, every accumulator in registers) over the dense causal
 // range, the longest rows first. The block-sparse backward runs the same
@@ -622,7 +623,25 @@ extern "C" int ds_flash_attention_bwd(
 
 #include "flash_bwd_sm90.cuh"
 
-// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64 or 128; the
+namespace {
+
+template <typename T>
+cudaError_t launch_wgmma(const void* const* ptr, const flash_bwd_sm90::Args& a, int batch,
+                         int head_dim, cudaStream_t s) {
+  namespace fb = flash_bwd_sm90;
+  const fb::NoParams none{};
+  switch (head_dim) {
+    case 64: return fb::launch<T, 64, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
+    case 80: return fb::launch<T, 80, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
+    case 96: return fb::launch<T, 96, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
+    case 128: return fb::launch<T, 128, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64, 80, 96 or 128; the
 // arguments as ds_flash_attention_bwd's, except that `scratch` is the
 // caller's fp32 buffer of 2 * batch * heads * s_pad floats, s_pad = s_q
 // rounded up to a multiple of 128 (lse2 rows, then delta rows), which the
@@ -658,15 +677,7 @@ extern "C" int ds_flash_attention_bwd_wgmma(
   const void* ptr[8] = {q, k, v, o, dout, dq, dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  const fb::NoParams none{};
-  if (dtype == 1 && head_dim == 64)
-    err = fb::launch<__half, 64, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
-  if (dtype == 1 && head_dim == 128)
-    err = fb::launch<__half, 128, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
-  if (dtype == 2 && head_dim == 64)
-    err = fb::launch<__nv_bfloat16, 64, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
-  if (dtype == 2 && head_dim == 128)
-    err = fb::launch<__nv_bfloat16, 128, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none,
-                                                                    s);
+  if (dtype == 1) err = launch_wgmma<__half>(ptr, a, batch, head_dim, s);
+  if (dtype == 2) err = launch_wgmma<__nv_bfloat16>(ptr, a, batch, head_dim, s);
   return (int)err;
 }

@@ -24,10 +24,10 @@
 //
 // Two routes, picked by the caller as a pure function of dtype and head_dim
 // (ops/cuda/flash_attention.py attention_route): the wgmma route (bf16 and
-// fp16 at head_dim 64 and 128, the widths of every main path; the kernel of
-// csrc/flash_fwd_sm90.cuh, ds_flash_attention_fwd_wgmma at the end of this
-// file) and the wmma route below
-// (ds_flash_attention_fwd: fp32, and 16-bit at head_dim 32, 80, 96, 256).
+// fp16 at head_dim 64, 80, 96, 128 and 256, the widths of every main path;
+// the kernel of csrc/flash_fwd_sm90.cuh, ds_flash_attention_fwd_wgmma at the
+// end of this file) and the wmma route below (ds_flash_attention_fwd: fp32,
+// and 16-bit at head_dim 32).
 //
 // The wmma route's design (a simple right kernel):
 //   * one thread block of 4 warps per (batch*head, 64-row q tile); the q tile
@@ -453,18 +453,40 @@ extern "C" int ds_flash_attention_fwd(
 }
 
 // ===================================================================================
-// The wgmma route: bf16 / fp16 at head_dim 64 and 128, on TMA and wgmma: the
-// kernel of csrc/flash_fwd_sm90.cuh with the dense causal range as its tile
-// schedule (DenseFwd). The last q tiles, which carry the most causal work,
-// run first, and kv tiles wholly above the causal diagonal are never loaded.
+// The wgmma route: bf16 / fp16 at head_dim 64, 80, 96, 128 and 256, on TMA and
+// wgmma: the kernel of csrc/flash_fwd_sm90.cuh with the dense causal range as
+// its tile schedule (DenseFwd). The last q tiles, which carry the most causal
+// work, run first, and kv tiles wholly above the causal diagonal are never
+// loaded.
 // ===================================================================================
 
 #include "flash_fwd_sm90.cuh"
 
-// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64 or 128; the
-// arguments as ds_flash_attention_fwd's (strides in elements, every stride a
-// multiple of 8 and every base 16-byte aligned, as TMA needs). Returns a
-// cudaError_t; what the route does not take is cudaErrorInvalidValue.
+namespace {
+
+template <typename T>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const flash_fwd_sm90::Args& a, int batch, int head_dim,
+                         const long long* st, cudaStream_t s) {
+  namespace ff = flash_fwd_sm90;
+  const ff::NoParams none;
+  switch (head_dim) {
+    case 64: return ff::launch<T, 64, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+    case 80: return ff::launch<T, 80, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+    case 96: return ff::launch<T, 96, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+    case 128: return ff::launch<T, 128, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+    case 256: return ff::launch<T, 256, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64, 80, 96, 128
+// or 256; the arguments as ds_flash_attention_fwd's (strides in elements,
+// every stride a multiple of 8 and every base 16-byte aligned, as TMA needs).
+// Returns a cudaError_t; what the route does not take is
+// cudaErrorInvalidValue.
 extern "C" int ds_flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, int dtype, int batch, int heads,
     int kv_heads, int s_q, int s_kv, int head_dim, long long q_sb, long long q_ss,
@@ -486,16 +508,9 @@ extern "C" int ds_flash_attention_fwd_wgmma(
   a.scale = scale;
   a.causal = causal;
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  const ff::NoParams none;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    err = ff::launch<__half, 64, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
-  if (dtype == 1 && head_dim == 128)
-    err = ff::launch<__half, 128, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
-  if (dtype == 2 && head_dim == 64)
-    err = ff::launch<__nv_bfloat16, 64, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
-  if (dtype == 2 && head_dim == 128)
-    err = ff::launch<__nv_bfloat16, 128, ff::DenseFwd>(q, k, v, a, batch, st, none, s);
+  if (dtype == 1) err = launch_wgmma<__half>(q, k, v, a, batch, head_dim, st, s);
+  if (dtype == 2) err = launch_wgmma<__nv_bfloat16>(q, k, v, a, batch, head_dim, st, s);
   return (int)err;
 }

@@ -1,7 +1,16 @@
 // The flash-attention backward on Hopper (sm_90a) with TMA and wgmma, bf16 /
-// fp16 at head_dim 64 and 128, driven by a tile schedule: shared by the dense
-// flash backward (csrc/flash_attention_bwd.cu, the dense causal range) and the
-// block-sparse backward (csrc/block_sparse_attention.cu, the layout's lists).
+// fp16 at head_dim 64, 80, 96 and 128, driven by a tile schedule: shared by
+// the dense flash backward (csrc/flash_attention_bwd.cu, the dense causal
+// range, every width) and the block-sparse backward
+// (csrc/block_sparse_attention.cu, the layout's lists, head_dim 64 and 128).
+//
+// Head dims 80 and 96 are padded to two 64-column panels (DP = 128) as in the
+// forward (csrc/flash_fwd_sm90.cuh): TMA fills the columns past head_dim
+// with zeros, the K-major products (S, dP, S^T, dP^T) issue only D / 16
+// k-steps, the products whose B is read MN-major (dS K, P^T dO, dS^T Q) run
+// at N = DP, and the prep pass and the dQ, dK and dV stores touch only the D
+// real columns. Head_dim 256 is not taken: dK and dV for 64 kv rows would be
+// 2 x 64 x 256 fp32 accumulators over 128 threads, 256 registers a thread.
 //
 // Three kernels in one call, with every accumulator in registers:
 //   * prep_kernel: per (b*h, row) of a q length padded to 128, delta = rowsum(dO * O)
@@ -21,8 +30,8 @@
 //     until the next tile's products, hence the third stage;
 //   * dkv_kernel: one block per (b*kv_heads, 128-row kv tile), two consumer
 //     warpgroups of 64 kv rows and a producer warpgroup. K and V are loaded
-//     once; the q tiles of the schedule (64 rows at head_dim 64, 32 at 128,
-//     which keeps dK and dV in registers), over every query head of the kv
+//     once; the q tiles of the schedule (64 rows at head_dim 64, 32 at 80,
+//     96 and 128, which keeps dK and dV in registers), over every query head of the kv
 //     head's group, stream through a 3-stage ring with their lse2 and delta
 //     rows (bulk copies). Per q tile n: S^T_n = K Q_n^T and dP^T_n = V dO_n^T
 //     (K-major, shared memory) are issued together with the previous tile's
@@ -66,14 +75,22 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int PAD = 128;                            // the q length of lse2 / delta rows
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the width in whole 64-column panels (80, 96 -> 128)
+template <int D>
+constexpr int padded_width() {
+  static_assert(D % 16 == 0 && D <= 128, "wgmma backward head_dim");
+  return (D + 63) / 64 * 64;
+}
+
 template <int D>
 struct DqCfg {
+  static constexpr int DP = padded_width<D>();
   static constexpr int BQ = 64 * CONSUMERS;
   static constexpr int BKV = 64;
   static constexpr int STAGES = 3;   // tile t's K is read until tile t + 1's products
-  static constexpr int PANELS = D / 64;
-  static constexpr int Q_BYTES = BQ * D * 2;        // one of the Q, dO tiles
-  static constexpr int KV_BYTES = BKV * D * 2;      // one of the K, V tiles
+  static constexpr int PANELS = DP / 64;
+  static constexpr int Q_BYTES = BQ * DP * 2;       // one of the Q, dO tiles (zero fill counts)
+  static constexpr int KV_BYTES = BKV * DP * 2;     // one of the K, V tiles
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int do_off = Q_BYTES;
   static constexpr int kv_off = 2 * Q_BYTES;
@@ -84,12 +101,13 @@ struct DqCfg {
 
 template <int D>
 struct DkvCfg {
+  static constexpr int DP = padded_width<D>();
   static constexpr int BKV = 64 * CONSUMERS;
-  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int BQ = DP == 64 ? 64 : 32;
   static constexpr int STAGES = 3;   // q tile n is read until q tile n + 1's products
-  static constexpr int PANELS = D / 64;
-  static constexpr int KV_BYTES = BKV * D * 2;      // one of the K, V tiles
-  static constexpr int QT_BYTES = BQ * D * 2;       // one of the Q, dO tiles
+  static constexpr int PANELS = DP / 64;
+  static constexpr int KV_BYTES = BKV * DP * 2;     // one of the K, V tiles
+  static constexpr int QT_BYTES = BQ * DP * 2;      // one of the Q, dO tiles
   static constexpr int TX_BYTES = 2 * QT_BYTES + 2 * BQ * 4;   // + lse2 and delta rows
   static constexpr int STAGE_BYTES = (TX_BYTES + 1023) / 1024 * 1024;
   static constexpr int v_off = KV_BYTES;
@@ -246,7 +264,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
               const Args a, const typename Sched<DqCfg<D>::BQ, DqCfg<D>::BKV>::Params sp) {
   using C = DqCfg<D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES;
+  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, DP = C::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(smem);
@@ -307,9 +325,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int row0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
 
-  float dq[D / 2];
+  float dq[DP / 2];   // the padded columns stay zero and are not stored
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
 
   if (n_tiles > 0) {
     const float sl2 = a.scale * LOG2E;
@@ -348,7 +366,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t kd = base + C::kv_off + (t % STAGES) * C::STAGE_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs<D, T>(dq, pa[kk], sw128_mn_desc(kd + kk * 2048, BKV * 128), 1);
+        wgmma_rs<DP, T>(dq, pa[kk], sw128_mn_desc(kd + kk * 2048, BKV * 128), 1);
       wgmma_commit();
     };
     // S_t, dP_t (waited for) -> dS_t in s; called for t = 0, 1, ... in turn
@@ -430,7 +448,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                __grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
                const Args a, const typename Sched<DkvCfg<D>::BQ, DkvCfg<D>::BKV>::Params sp) {
   using C = DkvCfg<D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES;
+  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, DP = C::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(smem);
@@ -493,9 +511,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int krow0 = kv0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows +0, +8
   const int cq = 2 * (lane & 3);
 
-  float dk[D / 2], dv[D / 2];
+  float dk[DP / 2], dv[DP / 2];   // the padded columns stay zero and are not stored
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
+  for (int i = 0; i < DP / 2; ++i) {
     dk[i] = 0.0f;
     dv[i] = 0.0f;
   }
@@ -536,10 +554,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t dod = qd + C::QT_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, T>(dv, pp[kk], sw128_mn_desc(dod + kk * 2048, BQ * 128), 1);
+        wgmma_rs<DP, T>(dv, pp[kk], sw128_mn_desc(dod + kk * 2048, BQ * 128), 1);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<D, T>(dk, pd[kk], sw128_mn_desc(qd + kk * 2048, BQ * 128), 1);
+        wgmma_rs<DP, T>(dk, pd[kk], sw128_mn_desc(qd + kk * 2048, BQ * 128), 1);
       wgmma_commit();
     };
     // S^T_n, dP^T_n (waited for) -> P^T_n in s, dS^T_n in dp; lse2 and delta

@@ -1,14 +1,16 @@
 // The flash-attention forward on Hopper (sm_90a) with TMA and wgmma, bf16 /
-// fp16 at head_dim 64 and 128, driven by a tile schedule: shared by the dense
-// flash forward (csrc/flash_attention_fwd.cu, the dense causal range) and the
-// block-sparse forward (csrc/block_sparse_attention.cu, the layout's lists).
+// fp16 at head_dim 64, 80, 96, 128 and 256, driven by a tile schedule: shared
+// by the dense flash forward (csrc/flash_attention_fwd.cu, the dense causal
+// range, every width) and the block-sparse forward
+// (csrc/block_sparse_attention.cu, the layout's lists, head_dim 64 and 128).
 //
 // One block per (batch*head, 128-row q tile), 384 threads: two consumer
 // warpgroups own 64 q rows each, and one thread of a producer warpgroup
 // issues every load (the producer gives its registers up to the consumers
 // with setmaxnreg: 24 a thread against their 240). The producer loads the q
 // tile once by TMA and streams the K and V tiles of the schedule (128 rows
-// each) through two rings of 2 stages, one for K and one for V: a stage's
+// each; 64 at head_dim 256, which keeps the rings inside 227 KB) through two
+// rings of 2 stages, one for K and one for V: a stage's
 // `full` mbarrier completes when its bytes have landed, its `empty` mbarrier
 // when all 8 consumer warps have released it. K and V have rings of their own
 // because they are released at different times (below). The tensor maps
@@ -16,10 +18,17 @@
 // arrive as zeros; each 64-column panel of a tile is one TMA box with the
 // 128-byte swizzle.
 //
+// Head dims that are no multiple of 64 (80, 96) are padded to whole panels
+// (DP = 128): the second panel's box reads the 16 or 32 real columns and TMA
+// fills the rest with zeros. S = Q K^T issues only D / 16 k-steps (the real
+// columns); P V runs at N = DP, because wgmma reads an MN-major B through the
+// 128-byte swizzle in whole 64-column atoms, so its padded columns of O are
+// computed (as zeros) and never stored: the epilogue writes the D real ones.
+//
 // Per kv tile t a consumer warpgroup
-//   * issues S_t = Q K_t^T (wgmma m64n128k16, A = its q rows, B = the K tile,
+//   * issues S_t = Q K_t^T (wgmma m64nBKVk16, A = its q rows, B = the K tile,
 //     both K-major from shared memory), then rescales O by the previous
-//     tile's correction and issues O += P_{t-1} V_{t-1} (wgmma m64nDk16, A =
+//     tile's correction and issues O += P_{t-1} V_{t-1} (wgmma m64nDPk16, A =
 //     P_{t-1} from registers, rounded to the input type as the TPU kernels'
 //     p.astype(v.dtype); B = the V tile read MN-major, the transpose bit, so V
 //     is never transposed in memory); both run asynchronously;
@@ -69,12 +78,14 @@ constexpr float NEG_BIG = -1e30f;                   // the plain version's runni
 
 template <int D>
 struct Cfg {
+  static_assert(D % 16 == 0 && D <= 256, "wgmma forward head_dim");
+  static constexpr int DP = (D + 63) / 64 * 64;     // the width in whole 64-column panels
   static constexpr int BQ = 64 * CONSUMERS;
-  static constexpr int BKV = 128;
+  static constexpr int BKV = DP > 128 ? 64 : 128;   // head_dim 256: 64 + 4 x 32 KB of tiles
   static constexpr int STAGES = 2;
-  static constexpr int PANELS = D / 64;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BKV * D * 2;      // one K or V tile
+  static constexpr int PANELS = DP / 64;
+  static constexpr int Q_BYTES = BQ * DP * 2;       // TMA's zero fill counts as bytes
+  static constexpr int KV_BYTES = BKV * DP * 2;     // one K or V tile
   static constexpr int k_off = Q_BYTES;             // the K ring, then the V ring
   static constexpr int v_off = k_off + STAGES * KV_BYTES;
   static constexpr int bar_off = v_off + STAGES * KV_BYTES;
@@ -173,10 +184,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
   }
 }
 
-template <int D>
-__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&corr)[2]) {
+template <int DP>
+__device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&corr)[2]) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       o[4 * j + 2 * h] *= corr[h];
@@ -190,7 +201,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                __grid_constant__ const CUtensorMap tm_v, const Args p,
                const typename Sched<Cfg<D>::BQ, Cfg<D>::BKV>::Params sp) {
   using C = Cfg<D>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES;
+  constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, DP = C::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(smem);
@@ -256,9 +267,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int row0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's rows: +0, +8
   const int cq = 2 * (lane & 3);   // this thread's first column in each group of 8
 
-  float o[D / 2];
+  float o[DP / 2];   // the padded columns stay zero and are not stored
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
   if (n_tiles > 0) {
@@ -273,21 +284,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (wg == 1) turn_pass(1);   // the first turn is warpgroup 0's
     mbar_wait(q_bar, 0);
 
-    // S_t = Q K_t^T into s
+    // S_t = Q K_t^T into s, over the D real columns
     const auto issue_s = [&](int t) {
       const uint32_t kd = base + C::k_off + (t % STAGES) * C::KV_BYTES;
+      // q's descriptors are the same for every tile; kept out of the loop
+      // they would hold two registers each (32 at head_dim 256) and spill
+      uint32_t qt = qa;
+      asm volatile("" : "+r"(qt));
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BKV, T>(s, sw128_desc(qa + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
+        wgmma_ss<BKV, T>(s, sw128_desc(qt + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
                          sw128_desc(kd + (kk >> 2) * BKV * 128 + 32 * (kk & 3)), kk > 0);
       wgmma_commit();
     };
     // O = O corr + P_t V_t, P_t in pa
     const auto issue_pv = [&](int t) {
       const int stage = t % STAGES;
-      rescale<D>(o, corr);
+      rescale<DP>(o, corr);
       mbar_wait(full_v + 8 * stage, (uint32_t)(t / STAGES) & 1u);
       const uint32_t vd = base + C::v_off + stage * C::KV_BYTES;
       fence_regs(o);
@@ -295,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs<D, T>(o, pa[kk], sw128_mn_desc(vd + kk * 2048, BKV * 128), 1);
+        wgmma_rs<DP, T>(o, pa[kk], sw128_mn_desc(vd + kk * 2048, BKV * 128), 1);
       wgmma_commit();
     };
     // S_t (waited for) -> P_t, with m, l and corr advanced; called for t = 0, 1, ... in turn

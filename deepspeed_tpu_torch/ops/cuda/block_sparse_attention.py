@@ -38,13 +38,14 @@ import torch
 
 from . import LAUNCH_COUNTS, resolve_route
 from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (the gate)
-                              _UNIT_ROUNDOFF, _WGMMA_DTYPES, _WGMMA_HEAD_DIMS,
-                              _check_kernel_inputs, _on_cpu)
+                              _UNIT_ROUNDOFF, _WGMMA_DTYPES, _check_kernel_inputs, _on_cpu)
 
 NEG_INF = -1e30
 
 # the TMA + wgmma route takes 16-bit types at head_dim 64 and 128 when a
-# layout block is a whole number of its 128-row tiles
+# layout block is a whole number of its 128-row tiles (the flash kernels'
+# other widths are not instantiated over the lists)
+_WGMMA_HEAD_DIMS = (64, 128)
 _WGMMA_BLOCK = 128
 
 

@@ -12,13 +12,15 @@ dQ kernels ``_dq_kernel_single``/``_dq_kernel`` and the dK/dV kernels
 in and out; k/v may carry fewer (GQA) heads than q; causal masking is aligned
 to the bottom right (query i sees key j <= i + s_kv - s_q).
 
-Each source has two routes, fixed by ``attention_route(dtype, head_dim)``
-before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64 and 128, the
-widths of every main path: TMA loads through an mbarrier ring, wgmma, the
-softmax and every accumulator in registers) and ``wmma`` (everything else
-the kernels take: fp32, and 16-bit at head_dim 32, 80, 96 and 256; warp-level
-wmma or fp32 FMAs through shared memory). A failed build or launch of either
-raises; neither falls back to the other.
+Each source has two routes, fixed by ``attention_route(dtype, head_dim,
+kernel)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64, 80, 96,
+128 and 256 for the forward, 64, 80, 96 and 128 for the backward: the widths
+of every main path; TMA loads through an mbarrier ring, wgmma, the softmax
+and every accumulator in registers, 80 and 96 padded to 128 by TMA's zero
+fill) and ``wmma`` (everything else the kernels take: fp32, 16-bit at
+head_dim 32, and the backward at 256; warp-level wmma or fp32 FMAs through
+shared memory). A failed build or launch of either raises; neither falls
+back to the other.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it computes the plain version (``flash_attention_reference``,
@@ -41,28 +43,34 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
-# the routes: the TMA + wgmma kernels take 16-bit types at these head dims
+# the routes: the TMA + wgmma kernels take 16-bit types at these head dims,
+# the forward's and the backward's (whose dK and dV at 256 would not fit the
+# registers)
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
-_WGMMA_HEAD_DIMS = (64, 128)
+_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 80, 96, 128)}
 _WGMMA_BWD_PAD = 128    # the wgmma backward's lse/delta rows: s_q rounded up to this
 
 
-def attention_route(dtype, head_dim):
-    """The route the flash kernels take for ``dtype`` and ``head_dim``: a
-    pure function of the two, decided before the launch. ``"wgmma"`` for
-    bf16/fp16 at head_dim 64 and 128, ``"wmma"`` for every other dtype and
-    head_dim the kernels take; None where no route does."""
+def attention_route(dtype, head_dim, kernel):
+    """The route the flash ``kernel`` (``"fwd"`` or ``"bwd"``) takes for
+    ``dtype`` and ``head_dim``: a pure function of the three, decided before
+    the launch. ``"wgmma"`` for bf16/fp16 at the kernel's
+    ``_WGMMA_HEAD_DIMS``, ``"wmma"`` for every other dtype and head_dim the
+    kernels take; None where no route does."""
+    if kernel not in _WGMMA_HEAD_DIMS:
+        raise ValueError(f"attention_route: kernel {kernel!r} is not 'fwd' or 'bwd'")
     if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS:
         return None
-    if dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS:
+    if dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS[kernel]:
         return "wgmma"
     return "wmma"
 
 
-def _pick_route(q, route):
-    """``attention_route`` for q, or the route ``route`` forces
-    (``resolve_route``)."""
-    return resolve_route("flash attention", attention_route(q.dtype, q.shape[3]), route,
+def _pick_route(q, route, kernel):
+    """``attention_route`` of ``kernel`` for q, or the route ``route``
+    forces (``resolve_route``)."""
+    return resolve_route(f"flash attention {kernel}",
+                         attention_route(q.dtype, q.shape[3], kernel), route,
                          f"{q.dtype} at head_dim {q.shape[3]}")
 
 
@@ -180,13 +188,14 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None, block_size=512, return
 
     CPU tensors take ``flash_attention_reference`` (kv chunks of
     ``block_size``; the kernel's tiles are fixed). CUDA tensors launch the
-    kernel of ``attention_route`` on the current stream (no synchronisation)
+    kernel of ``attention_route(..., "fwd")`` on the current stream (no
+    synchronisation)
     or raise on what it does not take: dtypes other than fp32/fp16/bf16,
     head_dim outside ``_KERNEL_HEAD_DIMS`` (32, 64, 80, 96, 128, 256), a
     non-contiguous last dim or rows not 16-byte aligned. ``_route`` forces a
     route, for timing one against the other (``_pick_route``)."""
     _check_shapes(q, k, v, causal)
-    route = _pick_route(q, _route)
+    route = _pick_route(q, _route, "fwd")
     if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
                                          block_size=block_size, return_lse=return_lse)
@@ -303,12 +312,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=None, block_size
     gradient ``do``, from the forward's ``lse``; dk and dv have k's (kv) heads.
 
     CPU tensors take ``flash_attention_bwd_reference``. CUDA tensors launch
-    the kernels of ``attention_route`` (a delta pass, the dQ kernel and the
+    the kernels of ``attention_route(..., "bwd")`` (a delta pass, the dQ kernel and the
     dK/dV kernel, counted as one launch) on the current stream, or raise on
     what they do not take: the forward's restrictions, o/do unlike q, or a
     missing lse. ``_route`` forces a route, as in ``flash_attention_fwd``."""
     _check_shapes(q, k, v, causal)
-    route = _pick_route(q, _route)
+    route = _pick_route(q, _route, "bwd")
     if lse is None:
         raise ValueError("flash backward needs the forward's lse (flash_attention_fwd(..., "
                          "return_lse=True))")

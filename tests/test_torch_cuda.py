@@ -311,18 +311,18 @@ _ROUTE_IDS = ["ragged", "sq<skv-gqa4", "noncausal-mqa", "noncausal-gqa4", "sq256
 
 
 @pytest.mark.parametrize("route", ["wgmma", "wmma"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("shape", _ROUTE_SHAPES, ids=_ROUTE_IDS)
 def test_forward_routes_match_plain(cuda, shape, dtype, d, route):
-    """The TMA + wgmma forward (the route of 16-bit types at head_dim 64 and
-    128) and the wmma kernel forced at the same shapes: o within 1e-5 +
-    ``rounding_bound`` of the plain version, lse within 1e-5 + 1e-5 |lse|;
-    each launch counted on its route."""
+    """The TMA + wgmma forward (the route of 16-bit types at head_dim 64,
+    80, 96, 128 and 256) and the wmma kernel forced at the same shapes: o
+    within 1e-5 + ``rounding_bound`` of the plain version, lse within 1e-5 +
+    1e-5 |lse|; each launch counted on its route."""
     from deepspeed_tpu_torch.ops.cuda.flash_attention import attention_route
 
     b, s_q, s_kv, h, kvh, causal, with_lse = shape
-    assert attention_route(dtype, d) == "wgmma"
+    assert attention_route(dtype, d, "fwd") == "wgmma"
     q, k, v = _qkv(b, s_q, s_kv, h, kvh, d, dtype, cuda)
     before = dict(LAUNCH_COUNTS)
     forced = None if route == "wgmma" else route
@@ -340,17 +340,19 @@ def test_forward_routes_match_plain(cuda, shape, dtype, d, route):
 
 
 @pytest.mark.parametrize("route", ["wgmma", "wmma"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("shape", [s[:6] for s in _ROUTE_SHAPES], ids=_ROUTE_IDS)
 def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
-    """The TMA + wgmma backward and the wmma kernels forced at the same
-    shapes: dq, dk, dv within 1e-5 + ``bwd_rounding_bound``; a second launch
-    gives bitwise the same gradients (no atomics)."""
+    """The TMA + wgmma backward (16-bit types at head_dim 64, 80, 96 and
+    128) and the wmma kernels forced at the same shapes: dq, dk, dv within
+    1e-5 + ``bwd_rounding_bound``; a second launch gives bitwise the same
+    gradients (no atomics)."""
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
-        bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
+        attention_route, bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
 
     b, s_q, s_kv, h, kvh, causal = shape
+    assert attention_route(dtype, d, "bwd") == "wgmma"
     args = _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, cuda)
     forced = None if route == "wgmma" else route
     before = dict(LAUNCH_COUNTS)
@@ -371,14 +373,61 @@ def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
 
 
 def test_forced_route_refuses_what_it_does_not_take(cuda):
+    """fp32 and head_dim 32 have no wgmma kernel, nor has the backward at
+    head_dim 256: forcing that route raises before any launch."""
     from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd
 
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 96)):
+    before = dict(LAUNCH_COUNTS)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
         q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, d, True, dtype, cuda)
         with pytest.raises(ValueError, match="route"):
             flash_attention_fwd(q, k, v, _route="wgmma")
         with pytest.raises(ValueError, match="route"):
             flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
+    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 256, True, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
+    assert dict(LAUNCH_COUNTS) == before
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_padded_columns_never_reach_an_output(cuda, dtype, d):
+    """At head_dim 80 and 96 the wgmma kernels read 128 columns a row, the
+    columns past d zero-filled by TMA. q, k, v, o and dO here are views of
+    the first d columns of 128-wide buffers whose other columns hold NaN:
+    the forward (with lse) and the backward must match the plain versions
+    on the same views, every output finite, on the wgmma route."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
+
+    b, s_q, s_kv, h, kvh = 1, 200, 333, 4, 2
+
+    def view(t):
+        wide = torch.full(t.shape[:3] + (128,), float("nan"), dtype=dtype, device=cuda)
+        wide[..., :d] = t
+        return wide[..., :d]
+
+    q, k, v, o, lse, do = _bwd_inputs(b, s_q, s_kv, h, kvh, d, True, dtype, cuda)
+    q, k, v, o, do = (view(t) for t in (q, k, v, o, do))
+    assert q.stride(2) == 128 and not q.is_contiguous()
+    before = dict(LAUNCH_COUNTS)
+    out, out_lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention_fwd_wgmma"] == before["flash_attention_fwd_wgmma"] + 1
+    assert LAUNCH_COUNTS["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"] + 1
+    assert torch.isfinite(out).all() and torch.isfinite(out_lse).all()
+    _assert_matches_plain(out, q, k, v, True)
+    _, ref_lse = flash_attention_reference(q, k, v, causal=True, return_lse=True)
+    assert ((out_lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
+    refs = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, causal=True)
+    for name, g, r, bound in zip(("dq", "dk", "dv"), grads, refs, bounds):
+        assert torch.isfinite(g).all(), name
+        diff = (g.float() - r.float()).abs()
+        worst = (diff / (1e-5 + bound)).max().item()
+        assert worst <= 1.0, f"{name}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
 
 
 # -- fused cross-entropy forward ---------------------------------------------------

@@ -158,29 +158,42 @@ def test_every_preset_head_dim_is_a_kernel_width():
 
 
 def test_attention_route_is_fixed_by_dtype_and_head_dim():
-    """bf16 and fp16 at head_dim 64 and 128 (Llama-7B's and GPT-2 medium's
-    widths) take the TMA + wgmma kernels; fp32 and the other widths the
-    wmma kernels; what no kernel takes has no route."""
+    """bf16 and fp16 at head_dim 64, 80, 96, 128 and 256 take the TMA +
+    wgmma forward, and at 64, 80, 96 and 128 the TMA + wgmma backward; the
+    backward at 256, head_dim 32 and fp32 take the wmma kernels; what no
+    kernel takes has no route, and a kernel other than the two raises."""
     route = cuda_flash.attention_route
     for dtype in (torch.bfloat16, torch.float16):
-        assert route(dtype, 64) == route(dtype, 128) == "wgmma"
-        for d in (32, 80, 96, 256):
-            assert route(dtype, d) == "wmma"
-    for d in cuda_flash._KERNEL_HEAD_DIMS:
-        assert route(torch.float32, d) == "wmma"
-    assert route(torch.bfloat16, 48) is None
-    assert route(torch.float64, 64) is None
+        for d in (64, 80, 96, 128, 256):
+            assert route(dtype, d, "fwd") == "wgmma"
+        for d in (64, 80, 96, 128):
+            assert route(dtype, d, "bwd") == "wgmma"
+        assert route(dtype, 256, "bwd") == "wmma"
+        for kernel in ("fwd", "bwd"):
+            assert route(dtype, 32, kernel) == "wmma"
+    for kernel in ("fwd", "bwd"):
+        for d in cuda_flash._KERNEL_HEAD_DIMS:
+            assert route(torch.float32, d, kernel) == "wmma"
+        assert route(torch.bfloat16, 48, kernel) is None
+        assert route(torch.float64, 64, kernel) is None
+    with pytest.raises(ValueError, match="kernel"):
+        route(torch.bfloat16, 64, "dq")
 
 
 def test_every_preset_head_dim_has_a_route():
-    """Every preset of the registry maps to a route in each kernel dtype,
-    and the main paths' models (Llama-7B bf16, GPT-2 medium bf16) to wgmma."""
+    """Every preset of the registry maps to a route of each flash kernel in
+    each kernel dtype, and the main paths' models (Llama-7B bf16, GPT-2
+    medium bf16) to wgmma for both."""
     dims = _registry_head_dims()
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        missing = {k: d for k, d in dims.items() if cuda_flash.attention_route(dtype, d) is None}
-        assert not missing, f"{dtype}: no route for {missing}"
-    assert cuda_flash.attention_route(torch.bfloat16, dims[("llama", "7b")]) == "wgmma"
-    assert cuda_flash.attention_route(torch.bfloat16, dims[("gpt2", "medium")]) == "wgmma"
+        for kernel in ("fwd", "bwd"):
+            missing = {k: d for k, d in dims.items()
+                       if cuda_flash.attention_route(dtype, d, kernel) is None}
+            assert not missing, f"{dtype} {kernel}: no route for {missing}"
+    for kernel in ("fwd", "bwd"):
+        assert cuda_flash.attention_route(torch.bfloat16, dims[("llama", "7b")], kernel) == "wgmma"
+        assert cuda_flash.attention_route(torch.bfloat16, dims[("gpt2", "medium")],
+                                          kernel) == "wgmma"
 
 
 def test_forced_route_the_shape_cannot_take_raises():

@@ -1,10 +1,11 @@
-"""The routes of the CE forward, the block-sparse forward and backward and
-the quantized matmul, on the CPU: which kernel each shape takes (a pure
+"""The routes of the flash forward and backward at the head dims beside 64
+and 128, the CE forward, the block-sparse forward and backward and the
+quantized matmul, on the CPU: which kernel each shape takes (a pure
 function of dtype, width, block and m, decided before the launch), the
 host-side planning of the Hopper routes (the CE's vocab slices, the
-block-sparse grid's heavy-first order and the forward's walk over the
-layout's lists, the quantized decode kernel's k splits), and the forced
-route the shape cannot take, which raises."""
+block-sparse grid's heavy-first order, the forward's walk over the layout's
+lists and over the dense causal range, the quantized decode kernel's k
+splits), and the forced route the shape cannot take, which raises."""
 
 import ast
 import inspect
@@ -24,6 +25,10 @@ from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
 from deepspeed_tpu_torch.ops.cuda.cross_entropy import (ce_route, ce_vocab_splits,
                                                         fused_ce_forward,
                                                         fused_ce_forward_reference)
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route, flash_attention_bwd,
+                                                          flash_attention_bwd_reference,
+                                                          flash_attention_fwd,
+                                                          flash_attention_reference)
 
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -273,6 +278,116 @@ def test_block_sparse_forward_takes_the_backwards_route():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
     assert (got[:, 128:] == 0).all() and (lse[:, :, 128:] == -1e30).all()
+    assert dict(LAUNCH_COUNTS) == before
+
+
+# the flash forward's kv tile per head_dim (csrc/flash_fwd_sm90.cuh Cfg): 128
+# rows, 64 at head_dim 256; head dims padded to whole 64-column panels
+def _fwd_kv_tile(d):
+    return 64 if d > 128 else 128
+
+
+def _padded(d):
+    return -(-d // 64) * 64
+
+
+def test_width_presets_take_the_wgmma_flash_kernels():
+    """The registry's OPT-2.7B (head_dim 80), GPT-NeoX-20B (96) and GPT-J-6B
+    (256) take the TMA + wgmma flash forward in bf16 and fp16; OPT-2.7B and
+    GPT-NeoX-20B the wgmma backward too, GPT-J-6B the wmma backward; the
+    block-sparse kernels keep the wmma route at these widths at every block."""
+    cfgs = _registry_configs()
+    want_bwd = {("opt", "2.7b"): "wgmma", ("gpt_neox", "20b"): "wgmma", ("gptj", "6b"): "wmma"}
+    for key, bwd in want_bwd.items():
+        d = cfgs[key].head_dim
+        assert d in (80, 96, 256), key
+        for dtype in (torch.bfloat16, torch.float16):
+            assert attention_route(dtype, d, "fwd") == "wgmma", key
+            assert attention_route(dtype, d, "bwd") == bwd, key
+            for block in (16, 32, 64, 128, 256):
+                assert block_sparse_route(dtype, d, block) == "wmma", (key, block)
+        assert attention_route(torch.float32, d, "fwd") == "wmma"
+
+
+def test_wgmma_flash_tiles_fit_shared_memory():
+    """The forward's q tile, K ring and V ring (2 stages each) of padded
+    width fit the 227 KB a block may have at every wgmma head_dim (head_dim
+    256 only with 64-row kv tiles), as do the backward's dQ tiles (Q, dO and
+    a 3-stage K/V ring) at every wgmma backward head_dim."""
+    limit = 232448
+    for d in (64, 80, 96, 128, 256):
+        dp, bkv = _padded(d), _fwd_kv_tile(d)
+        assert dp % 64 == 0 and dp - d < 64
+        fwd = 128 * dp * 2 + 4 * bkv * dp * 2 + 8 * 9 + 1024
+        assert fwd <= limit, d
+        if d == 256:
+            assert 128 * dp * 2 + 4 * 128 * dp * 2 > limit   # why its kv tile is 64 rows
+    for d in (64, 80, 96, 128):
+        dp = _padded(d)
+        assert 2 * 128 * dp * 2 + 3 * 2 * 64 * dp * 2 + 8 * 7 + 1024 <= limit, d
+
+
+def _dense_fwd_walk(s_q, s_kv, causal, bkv, bq=128):
+    """A mirror of ``DenseFwd`` (csrc/flash_fwd_sm90.cuh): for every grid row,
+    its q tile's first row and the first keys of the kv tiles it walks."""
+    n_rows = -(-s_q // bq)
+    walks = {}
+    for y in range(n_rows):
+        q0 = (n_rows - 1 - y) * bq
+        kv_end = s_kv
+        if causal:
+            kv_end = min(s_kv, q0 + min(bq, s_q - q0) + s_kv - s_q)
+        walks[q0] = [bkv * t for t in range(-(-kv_end // bkv))]
+    return walks
+
+
+@pytest.mark.parametrize("d", [80, 96, 128, 256])
+@pytest.mark.parametrize("case", [(True, 2048, 2048), (True, 1000, 1000), (True, 200, 777),
+                                  (False, 300, 500)],
+                         ids=["causal-s2048", "causal-s1000", "causal-sq200<skv777",
+                              "noncausal-sq300-skv500"])
+def test_dense_fwd_walk_is_the_plain_versions_visible_tiles(d, case):
+    """The wgmma forward's walk over the dense range visits, for every q
+    tile, exactly the kv tiles (128 rows; 64 at head_dim 256) in which the
+    plain version's mask keeps some (query, key) element, ascending, each
+    once; every q tile of the grid once, the last first."""
+    causal, s_q, s_kv = case
+    bkv = _fwd_kv_tile(d)
+    walks = _dense_fwd_walk(s_q, s_kv, causal, bkv)
+    assert list(walks) == list(range(0, s_q, 128))[::-1]
+    rows = np.arange(s_q)[:, None]
+    cols = np.arange(s_kv)[None, :]
+    seen = (cols <= rows + s_kv - s_q) if causal else np.ones((s_q, s_kv), bool)
+    for q0, keys in walks.items():
+        block = seen[q0:q0 + 128]
+        want = [k0 for k0 in range(0, s_kv, bkv) if block[:, k0:k0 + bkv].any()]
+        assert keys == want, q0
+
+
+def test_flash_forced_wgmma_backward_at_256_raises():
+    """The backward at head_dim 256 has no wgmma kernel: forcing that route
+    raises, on CPU tensors too, while the forced wmma route and the forward
+    forced onto wgmma at 256 still give the plain versions on CPU tensors,
+    launching nothing."""
+    r = np.random.RandomState(1)
+    q, k, v, do = (torch.tensor(r.randn(1, 64, 2, 256), dtype=torch.bfloat16)
+                   for _ in range(4))
+    before = dict(LAUNCH_COUNTS)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, _route="wgmma")
+    want_o, want_lse = flash_attention_reference(q, k, v, return_lse=True)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=0)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
+    got = flash_attention_bwd(q, k, v, o, lse, do, _route="wmma")
+    for g, w in zip(got, flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for d in (80, 96):   # the backward's wgmma route takes these widths
+        args = [t[..., :d] for t in (q, k, v)]
+        o_d, lse_d = flash_attention_reference(*args, return_lse=True)
+        got = flash_attention_bwd(*args, o_d, lse_d, do[..., :d], _route="wgmma")
+        for g, w in zip(got, flash_attention_bwd_reference(*args, o_d, lse_d, do[..., :d])):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert dict(LAUNCH_COUNTS) == before
 
 

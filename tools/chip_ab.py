@@ -20,16 +20,31 @@ request (each the mean of its two runs) and CHANGE less BASE.
 
     python3 tools/chip_ab.py --measure ROOT   # one run (what the driver starts)
     python3 tools/chip_ab.py --qmm-sweep      # variants of the mma decode kernel in turns
+    python3 tools/chip_ab.py --widths BASE CHANGE
+
+``--widths`` runs the head dims 80 and 256 on their bf16 paths in the same
+turns: full GPT-J-6B (28 layers, 16 heads of 256) ``generate()`` over
+``chip_smoke.py`` phase 10's requests, cold and warm, and full OPT-2.7B (32
+heads of 80) ``train_batch()`` at phase 10's batch and sequence, 2 warm-up
+and 8 timed steps. The shapes and configs are this checkout's
+``chip_smoke.py`` constants (``WIDTH_PATH_*``, ``WIDTH_TRAIN_*``), loaded by
+path; the loops are this file's own, so a root whose ``chip_smoke.py`` has
+no phase 10 runs too. Each run builds the flash and CE kernels of its root.
+Prints one JSON line per run, then a summary: each root's warm prefill ms
+per request, median step ms and launches by route (means of two runs) and
+CHANGE less BASE.
 
 Needs one CUDA card and nvcc; fails without them.
 """
 
+import importlib.util
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import time
 
 
 def int8_generate(torch, cs):
@@ -113,6 +128,121 @@ def measure(root):
 
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def own_chip_smoke():
+    """This checkout's ``chip_smoke.py`` (the root above tools/), loaded by
+    path under its own name, so its constants drive either root's package."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_chip_ab",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def widths_measure(root):
+    """One ``--widths`` run in ``root``: GPT-J-6B bf16 ``generate()`` (warm
+    prefill ms per request from ``last_timing``) and OPT-2.7B bf16
+    ``train_batch()`` (median step ms), with the flash launches by route."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: no CUDA device")
+    cs = own_chip_smoke()
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM, gptj_config, opt_config
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from deepspeed_tpu_torch.ops.op_builder import ALL_OPS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    builders = [ALL_OPS[n]() for n in ("flash_attention_fwd", "flash_attention_bwd",
+                                       "fused_ce_forward")]
+    for b, started in [(b, b.start()) for b in builders]:
+        b.finish(started)
+    flash = ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_bwd",
+             "flash_attention_bwd_wgmma")
+
+    cfg = gptj_config("6b")
+    eng = deepspeed_tpu_torch.init_inference(CausalLM(cfg), dict(cs.WIDTH_PATH_CONFIG))
+    rng = np.random.RandomState(10)
+    reset_launch_counts()
+    prefill = {}
+    for name, shape in cs.WIDTH_PATH_REQUESTS:
+        ids = rng.randint(0, cfg.vocab_size, shape)
+        for attempt in ("cold", "warm"):
+            eng.generate(ids, max_new_tokens=cs.WIDTH_PATH_NEW, greedy=True)
+            torch.cuda.synchronize()
+            prefill[f"{name}/{attempt}"] = eng.last_timing.seconds()["prefill"] * 1e3
+    generate_launches = {k: LAUNCH_COUNTS[k] for k in flash}
+    eng.destroy()
+    del eng
+    torch.cuda.empty_cache()
+
+    tcfg = opt_config("2.7b", attention_impl="flash", remat=False, fused_ce=True,
+                      fused_ce_impl="pallas")
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(tcfg),
+                                                     config=dict(cs.WIDTH_TRAIN_CONFIG))
+    batch = {"input_ids": np.random.RandomState(0).randint(
+        0, tcfg.vocab_size, (cs.WIDTH_TRAIN_BATCH, cs.WIDTH_TRAIN_SEQ))}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms = []
+    for _ in range(cs.TRAIN_WARMUP + cs.TRAIN_STEPS):
+        t = time.perf_counter()
+        float(engine.train_batch(batch=batch))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    train_launches = {k: LAUNCH_COUNTS[k] for k in flash}
+    timed = sorted(step_ms[cs.TRAIN_WARMUP:])
+    median = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    engine.destroy()
+    return {"root": root, "card": torch.cuda.get_device_name(0), "gptj_prefill_ms": prefill,
+            "gptj_generate_launches": generate_launches, "opt_step_ms": step_ms,
+            "opt_step_ms_median": median, "opt_train_launches": train_launches,
+            "opt_peak_gib": peak}
+
+
+def widths_ab(base, change, smi):
+    """``--widths``: widths_measure of each root in turns (base, change,
+    change, base), one process per run."""
+    runs = []
+    for label, root in (("base", base), ("change", change), ("change", change), ("base", base)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--widths-measure",
+                               root], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"chip_ab --widths: the {label} run failed (exit {proc.returncode})")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        run["label"] = label
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+
+    def mean(label, get):
+        vals = [get(r) for r in runs if r["label"] == label]
+        return sum(vals) / len(vals)
+
+    summary = {"card": smi, "order": [r["label"] for r in runs]}
+    for label in ("base", "change"):
+        summary[label] = {
+            "opt_step_ms_median": mean(label, lambda r: r["opt_step_ms_median"]),
+            "opt_step_ms_medians": [r["opt_step_ms_median"] for r in runs if r["label"] == label],
+            "gptj_prefill_ms": {q: mean(label, lambda r, q=q: r["gptj_prefill_ms"][q])
+                                for q in runs[0]["gptj_prefill_ms"] if q.endswith("/warm")},
+            "gptj_generate_launches": next(r["gptj_generate_launches"] for r in runs
+                                           if r["label"] == label),
+            "opt_train_launches": next(r["opt_train_launches"] for r in runs
+                                       if r["label"] == label)}
+    summary["change_less_base"] = {
+        "opt_step_ms_median": (summary["change"]["opt_step_ms_median"]
+                               - summary["base"]["opt_step_ms_median"]),
+        "gptj_prefill_ms": {q: summary["change"]["gptj_prefill_ms"][q]
+                            - summary["base"]["gptj_prefill_ms"][q]
+                            for q in summary["base"]["gptj_prefill_ms"]}}
+    print(json.dumps({"widths_ab_summary": summary}), flush=True)
+    return 0
 SOURCE = os.path.join("deepspeed_tpu_torch", "csrc", "quantized_matmul.cu")
 HINT = "cp.async.cg.shared.global.L2::128B"
 SET_SMEM = "cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);\n"
@@ -260,12 +390,17 @@ def main(argv):
     if len(argv) == 2 and argv[0] == "--measure":
         print(json.dumps(measure(argv[1])), flush=True)
         return 0
-    if len(argv) != 2:
+    if len(argv) == 2 and argv[0] == "--widths-measure":
+        print(json.dumps(widths_measure(argv[1])), flush=True)
+        return 0
+    if len(argv) not in (2, 3) or (len(argv) == 3 and argv[0] != "--widths"):
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+    if argv[0] == "--widths":
+        return widths_ab(argv[1], argv[2], smi.stdout.strip())
     base, change = argv
     runs = []
     for label, root in (("base", base), ("change", change), ("change", change), ("base", base)):
