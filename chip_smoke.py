@@ -82,7 +82,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      and decode ms from ``last_timing`` cold and warm, every prefill's flash
      forwards on the wgmma route, a profile of one GPT-J-6B prefill; then
      ``train_batch()`` on OPT-2.7B at b 4 x s 2048 (phase 6's loop: 32 flash
-     forwards, 32 backwards and one CE forward a step, all on wgmma).
+     forwards, 32 backwards and one CE forward a step, all on wgmma) and on
+     GPT-J-6B at full width cut to 12 of its 28 layers at b 2 x s 2048, with
+     flash attention (a flash forward and backward a layer, all on wgmma)
+     and with phase 8's block-sparse pattern (a block-sparse forward on
+     wgmma and a backward on wmma a layer, and one ``eval_batch``).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1088,13 +1092,16 @@ def phase_train_kernels(torch, F):
 
     # -- the CE forward ---------------------------------------------------------------
     tokens = b * s
-    opt = width_train_model_config()   # phase 10's training head
+    opt = width_train_model_config()   # phase 10's training heads
+    gptj = gptj_train_model_config()
     for name, t, vocab, n_ignored, bias, dm in (
             ("train", tokens, TRAIN_VOCAB, 0, False, 1024),
             ("vocab50257-ignored", tokens, 50257, 1000, False, 1024),
             ("bias", 4096, TRAIN_VOCAB, 0, True, 1024),
             ("opt-2.7b-train", WIDTH_TRAIN_BATCH * WIDTH_TRAIN_SEQ, opt.vocab_size, 0, False,
-             opt.d_model)):
+             opt.d_model),
+            ("gptj-6b-train", GPTJ_TRAIN_BATCH * GPTJ_TRAIN_SEQ, gptj.vocab_size, 0, True,
+             gptj.d_model)):
         x = rnd(t, dm).to(torch.bfloat16)
         emb = (0.02 * rnd(vocab, dm)).to(torch.bfloat16)
         labels = torch.randint(0, vocab, (t,), generator=gen, device="cuda")
@@ -1176,6 +1183,17 @@ WIDTH_PATH_MODELS = (("gptj", "6b", ("single-57", "single-900", "single-1984", "
 # batch that fits 80 GB at seq 2048
 WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ = 4, 2048
 WIDTH_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_batch_size=WIDTH_TRAIN_BATCH)
+# and train_batch() on GPT-J-6B at full width (16 heads of 256), its 28
+# layers cut to GPTJ_TRAIN_LAYERS so that the fp32 masters, grads and AdamW
+# moments (16 bytes a parameter: 2.83 B parameters, 42 GiB), the AdamW
+# update's temporaries (3 GiB each for the stacked MLP kernels) and the
+# activations fit one card at ZeRO 0 (16 layers ran out of 80 GB in the
+# update); with flash attention, then with phase 8's block-sparse pattern
+# (fixed, 128-token blocks, 4 local, 1 global: 64 of the 136 causal blocks
+# at seq 2048); phase 6's engine config
+GPTJ_TRAIN_LAYERS = 12
+GPTJ_TRAIN_BATCH, GPTJ_TRAIN_SEQ = 2, 2048
+GPTJ_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_batch_size=GPTJ_TRAIN_BATCH)
 
 
 def width_path_prefill_shapes():
@@ -1204,28 +1222,43 @@ def width_train_model_config():
                       fused_ce_impl="pallas")
 
 
+def gptj_train_model_config(sparse=False):
+    """Phase 10's GPT-J-6B training model: full width, GPTJ_TRAIN_LAYERS
+    layers, phase 6's choices (no remat, the CE forward kernel) with flash
+    attention or, with ``sparse``, phase 8's block-sparse attention."""
+    from deepspeed_tpu_torch.models import gptj_config
+
+    attention = dict(SPARSE_ATTENTION) if sparse else {"attention_impl": "flash"}
+    return gptj_config("6b", n_layers=GPTJ_TRAIN_LAYERS, remat=False, fused_ce=True,
+                       fused_ce_impl="pallas", **attention)
+
+
 def phase_width_kernels(torch, F):
     """The flash forward, the flash backward and the block-sparse forward
     and backward against their plain versions at head_dim 32, 80, 96 and 256
     (``WIDTHS``, each at a preset's head count): bf16 and fp32, fp16 at one
-    shape (80, 96, 256); the flash forward (with lse) causal at s 2048, with
-    GQA, with s_q < s_kv and at s_q 1000 < s_kv 1536 with GQA, and in bf16 at
-    every prefill shape of phase 10 (no lse) and OPT-2.7B's training shape;
-    the backward causal at s 1024, with GQA and s_q < s_kv, and at the
-    training shape; the block-sparse kernels at s 1024 with the fixed pattern
-    of 64-token blocks (and, at head_dim 256, phase 9's 32-token blocks).
-    Each case is timed beside its plain version, its bound and SDPA (for the
-    block-sparse kernels: with the layout's token mask); a case on the wgmma
-    route also holds the wmma route forced at its shape against the plain
-    version and times the two in turns. Returns the cases and the (batch,
-    seq, heads, kv heads, head_dim) of phase 10's prefills and training step
-    held here."""
+    shape (80, 96; at 256 the backward's every shape); the flash forward
+    (with lse) causal at s 2048, with GQA, with s_q < s_kv and at s_q 1000 <
+    s_kv 1536 with GQA, and in bf16 at every prefill shape of phase 10 (no
+    lse) and OPT-2.7B's and GPT-J-6B's training shapes; the backward causal
+    at s 1024, with GQA and s_q < s_kv, and at the training shapes; the
+    block-sparse kernels at s 1024 with the fixed pattern of 64-token blocks
+    (and, at head_dim 256, phase 9's 32-token blocks); the block-sparse
+    forward (its wgmma route) with phase 8's pattern of 128-token blocks at
+    s 2048 in bf16 and fp16, and in bf16 at GPT-J-6B's training shape with
+    its backward. Each case is timed beside its plain version, its bound and
+    SDPA (for the block-sparse kernels: with the layout's token mask); a
+    case on the wgmma route also holds the wmma route forced at its shape
+    against the plain version and times the two in turns. Returns the cases
+    and the shapes of phase 10's prefills and training steps held here:
+    (batch, seq, heads, kv heads, head_dim), and for the block-sparse step
+    also the layout's bytes."""
     import numpy as np
 
     from deepspeed_tpu_torch.ops import sparse_attention as SA
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
-        block_sparse_attention_fwd, block_sparse_attention_fwd_reference)
+        block_sparse_attention_fwd, block_sparse_attention_fwd_reference, block_sparse_route)
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         bwd_rounding_bound as bs_bwd_bound)
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import rounding_bound as bs_bound
@@ -1269,8 +1302,94 @@ def phase_width_kernels(torch, F):
         return (torch.arange(s_kv, device="cuda")[None, :]
                 <= torch.arange(s_q, device="cuda")[:, None] + (s_kv - s_q))
 
+    def sparse_width_case(name, preset, dtype, b, s, hq, d, block, pattern_config,
+                          with_bwd, main_path=None):
+        """The block-sparse forward (with lse) over the fixed pattern of
+        ``block``-token blocks (``pattern_config``), causal, and with
+        ``with_bwd`` its backward, each on the route ``block_sparse_route``
+        gives it, against the plain versions; a kernel on the wgmma route
+        also holds the wmma route forced at its shape and times the two in
+        turns. A ``main_path`` case with its backward is a shape of phase
+        10's training, recorded as held."""
+        attn = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=block, **pattern_config), s,
+                                       causal=True, device="cuda")
+        lists = attn.lists
+        routes = {part: block_sparse_route(dtype, d, block, part) for part in ("fwd", "bwd")}
+        q, k, v, do = (rnd(b, s, hq, d).to(dtype) for _ in range(4))
+        fwd = lambda route=None: block_sparse_attention_fwd(q, k, v, lists, causal=True,
+                                                            return_lse=True, _route=route)
+        ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
+                                                            return_lse=True)
+        label = f"block-sparse {name} {dtype}"
+        fp32 = dtype == torch.float32
+        tol, (lim,) = limits(dtype, [ref], [None if fp32 else bs_bound(q, k, v, ref, lists)])
+        lse_lim, lse_tol = 1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|"
+        uses, lse_uses = [], []
+        for route in ("kernel", "wmma") if routes["fwd"] == "wgmma" else ("kernel",):
+            o, lse = fwd(None if route == "kernel" else route)
+            torch.cuda.synchronize()
+            was = "" if route == "kernel" else " (wmma route)"
+            diff = (o.float() - ref.float()).abs()
+            uses.append(check_limit(f"{label} fwd{was}", diff, lim, tol))
+            lse_uses.append(check_limit(f"{label} lse{was}", (lse - ref_lse).abs(), lse_lim,
+                                        lse_tol))
+            if route == "kernel":
+                errs = (diff.max().item(), (lse - ref_lse).abs().max().item())
+            del o, lse, diff
+        common = dict(preset=preset, dtype=str(dtype).split(".")[1], b=b, s=s, h=hq, d=d,
+                      pattern="fixed", block=block, causal=True,
+                      kept_blocks=int(attn.layout.sum()), tolerance=tol, main_path=main_path)
+        fr = dict(common, case=name, kernel_route=routes["fwd"], max_abs_err=errs[0],
+                  limit_use=max(uses), lse_max_abs_err=errs[1], lse_limit_use=max(lse_uses))
+        del lim, lse_lim
+        kept = kept_pairs(attn.layout, block, s, s, True)
+        size = q.numel() * q.element_size()
+        mask = np.kron(attn.layout, np.ones((block, block), bool))
+        mask = torch.as_tensor(mask & np.tril(np.ones((s, s), bool)), device="cuda")
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lse_bytes = ref_lse.numel() * 4
+        record("block_sparse_fwd", fr, 4 * d * kept * b * hq, 4 * size + lse_bytes, fwd,
+               lambda: block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
+                                                            return_lse=True),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+               old=(lambda: fwd("wmma")) if routes["fwd"] == "wgmma" else None)
+        if not with_bwd:
+            return
+        bwd = lambda route=None: block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists,
+                                                            causal=True, _route=route)
+        refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
+                                                    causal=True)
+        _, g_lims = limits(dtype, refs, [None] * 3 if fp32 else
+                           bs_bwd_bound(q, k, v, ref, ref_lse, do, refs, lists))
+        uses, errs = {g: 0.0 for g in ("dq", "dk", "dv")}, {}
+        for route in ("kernel", "wmma") if routes["bwd"] == "wgmma" else ("kernel",):
+            grads = bwd(None if route == "kernel" else route)
+            torch.cuda.synchronize()
+            was = "" if route == "kernel" else " (wmma route)"
+            for i, g in enumerate(("dq", "dk", "dv")):
+                g_diff = (grads[i].float() - refs[i].float()).abs()
+                uses[g] = max(uses[g], check_limit(f"{label} {g}{was}", g_diff, g_lims[i], tol))
+                if route == "kernel":
+                    errs[g] = g_diff.max().item()
+            del grads, g_diff
+        gr = dict(common, case=name, kernel_route=routes["bwd"], max_abs_err=max(errs.values()),
+                  max_abs_err_by_grad=errs, limit_use=max(uses.values()), limit_use_by_grad=uses)
+        del refs, g_lims
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = do.transpose(1, 2)
+        record("block_sparse_bwd", gr, 10 * d * kept * b * hq, 8 * size + lse_bytes, bwd,
+               lambda: block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
+                                                            causal=True),
+               lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True),
+               old=(lambda: bwd("wmma")) if routes["bwd"] == "wgmma" else None)
+        if main_path:
+            checked["block_sparse"].add((b, s, hq, hq, d, attn.layout.tobytes()))
+
     paths = width_path_prefill_shapes()
-    checked = {"prefill": set(), "train": set(), "train_bwd": set()}
+    # phase 10's training models: (name, config, batch, seq)
+    trains = [("opt-train", width_train_model_config(), WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ),
+              ("gptj-train", gptj_train_model_config(), GPTJ_TRAIN_BATCH, GPTJ_TRAIN_SEQ)]
+    checked = {"prefill": set(), "train": set(), "train_bwd": set(), "block_sparse": set()}
     for d, h, preset in WIDTHS:
         dtypes = [torch.bfloat16, torch.float32] + ([torch.float16] if d != 32 else [])
         for dtype in dtypes:
@@ -1284,16 +1403,13 @@ def phase_width_kernels(torch, F):
                               ("gqa-sq1000<skv1536", 1, 1000, 1536, h, max(1, h // 4), True,
                                True)]
             if dtype == torch.bfloat16:
-                # phase 10's prefills (no lse) and OPT-2.7B's training forward
+                # phase 10's prefills (no lse) and training forwards
                 for (family, size), (cfg, shapes) in paths.items():
                     if cfg.head_dim == d:
                         fwd_cases += [(f"{family}-{size}-b{b}-s{s}", b, s, s, cfg.n_heads,
                                        cfg.kv_heads, True, False) for b, s in shapes]
-                if d == width_train_model_config().head_dim:
-                    tc = width_train_model_config()
-                    fwd_cases.append((f"opt-train-b{WIDTH_TRAIN_BATCH}-s{WIDTH_TRAIN_SEQ}",
-                                      WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ, WIDTH_TRAIN_SEQ,
-                                      tc.n_heads, tc.kv_heads, True, True))
+                fwd_cases += [(f"{tname}-b{tb}-s{ts}", tb, ts, ts, tc.n_heads, tc.kv_heads,
+                               True, True) for tname, tc, tb, ts in trains if tc.head_dim == d]
             for name, b, s_q, s_kv, hq, kvh, causal, with_lse in fwd_cases:
                 q = rnd(b, s_q, hq, d).to(dtype)
                 k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
@@ -1348,14 +1464,12 @@ def phase_width_kernels(torch, F):
 
             # -- flash backward ---------------------------------------------------
             bwd_cases = [("causal-s1024", 1, 1024, 1024, h, h, True)]
-            if dtype != torch.float16:
+            if dtype != torch.float16 or d == 256:
                 bwd_cases += [("gqa-sq256<skv512", 1, 256, 512, h, max(1, h // 4), True),
                               ("gqa-sq1000<skv1536", 1, 1000, 1536, h, max(1, h // 4), True)]
-            if dtype == torch.bfloat16 and d == width_train_model_config().head_dim:
-                tc = width_train_model_config()
-                bwd_cases.append((f"opt-train-b{WIDTH_TRAIN_BATCH}-s{WIDTH_TRAIN_SEQ}",
-                                  WIDTH_TRAIN_BATCH, WIDTH_TRAIN_SEQ, WIDTH_TRAIN_SEQ,
-                                  tc.n_heads, tc.kv_heads, True))
+            if dtype == torch.bfloat16:
+                bwd_cases += [(f"{tname}-b{tb}-s{ts}", tb, ts, ts, tc.n_heads, tc.kv_heads, True)
+                              for tname, tc, tb, ts in trains if tc.head_dim == d]
             for name, b, s_q, s_kv, hq, kvh, causal in bwd_cases:
                 q = rnd(b, s_q, hq, d).to(dtype)
                 k, v = rnd(b, s_kv, kvh, d).to(dtype), rnd(b, s_kv, kvh, d).to(dtype)
@@ -1409,73 +1523,34 @@ def phase_width_kernels(torch, F):
                     checked["train_bwd"].add((b, s_q, hq, kvh, d))
                 del q, k, v, o, lse, do, args, qt, kt, vt, sdpa, gt, call
             # -- block-sparse forward and backward --------------------------------
+            # the fixed pattern of 64-token blocks (and phase 9's 32 at 256)
             blocks = [64] + ([WIDTH_SPARSE["sparse_block"]] if d == 256 else [])
             if dtype == torch.float16:
                 blocks = [64]
             for block in blocks:
-                s, b = 1024, 1
-                kwargs = WIDTH_SPARSE["sparse_pattern_config"]
-                attn = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=block, **kwargs), s,
-                                               causal=True, device="cuda")
-                lists = attn.lists
-                q, k, v, do = (rnd(b, s, h, d).to(dtype) for _ in range(4))
-                o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True,
-                                                    return_lse=True)
-                ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
-                                                                    return_lse=True)
-                grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists,
-                                                   causal=True)
-                refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
-                                                            causal=True)
-                torch.cuda.synchronize()
-                name = f"fixed{block}-s{s}"
-                label = f"block-sparse {tag(name)} {dtype}"
-                f_bound = None if dtype == torch.float32 else bs_bound(q, k, v, ref, lists)
-                g_bounds = (None if dtype == torch.float32 else
-                            bs_bwd_bound(q, k, v, ref, ref_lse, do, refs, lists))
-                tol, (f_lim,) = limits(dtype, [ref], [f_bound])
-                _, g_lims = limits(dtype, refs, g_bounds or [None] * 3)
-                f_diff = (o.float() - ref.float()).abs()
-                f_use = check_limit(f"{label} fwd", f_diff, f_lim, tol)
-                lse_use = check_limit(f"{label} lse", (lse - ref_lse).abs(),
-                                      1e-5 + 1e-5 * ref_lse.abs(), "1e-05 + 1e-05|plain lse|")
-                uses = {g: check_limit(f"{label} {g}", (grads[i].float() - refs[i].float()).abs(),
-                                       g_lims[i], tol)
-                        for i, g in enumerate(("dq", "dk", "dv"))}
-                errs = {g: (grads[i].float() - refs[i].float()).abs().max().item()
-                        for i, g in enumerate(("dq", "dk", "dv"))}
-                common = dict(preset=preset, dtype=str(dtype).split(".")[1], b=b, s=s, h=h, d=d,
-                              pattern="fixed", block=block, causal=True,
-                              kept_blocks=int(attn.layout.sum()), tolerance=tol)
-                fr = dict(common, case=tag(name), max_abs_err=f_diff.max().item(),
-                          limit_use=f_use, lse_limit_use=lse_use)
-                gr = dict(common, case=tag(name), max_abs_err=max(errs.values()),
-                          max_abs_err_by_grad=errs, limit_use=max(uses.values()),
-                          limit_use_by_grad=uses)
-                del f_diff, f_lim, g_lims, f_bound, g_bounds, grads, refs
-                kept = kept_pairs(attn.layout, block, s, s, True)
-                size = q.numel() * q.element_size()
-                mask = np.kron(attn.layout, np.ones((block, block), bool))
-                mask = torch.as_tensor(mask & np.tril(np.ones((s, s), bool)), device="cuda")
-                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-                record("block_sparse_fwd", fr, 4 * d * kept * b * h, 4 * size + lse.numel() * 4,
-                       lambda: block_sparse_attention_fwd(q, k, v, lists, causal=True,
-                                                          return_lse=True),
-                       lambda: block_sparse_attention_fwd_reference(q, k, v, lists, causal=True,
-                                                                    return_lse=True),
-                       lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-                sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-                gt = do.transpose(1, 2)
-                record("block_sparse_bwd", gr, 10 * d * kept * b * h, 8 * size + lse.numel() * 4,
-                       lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
-                                                          causal=True),
-                       lambda: block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists,
-                                                                    causal=True),
-                       lambda: torch.autograd.grad(sdpa, (qt, kt, vt), gt, retain_graph=True))
-                del q, k, v, do, o, lse, ref, ref_lse, mask, qt, kt, vt, sdpa, gt
+                sparse_width_case(tag(f"fixed{block}-s1024"), preset, dtype, 1, 1024, h, d, block,
+                                  WIDTH_SPARSE["sparse_pattern_config"], True)
+            # phase 8's pattern of 128-token blocks: the forward's wgmma route
+            if d != 32 and dtype != torch.float32:
+                # (name, batch, seq, heads, main path: phase 10's block-sparse
+                # step, GPT-J-6B's)
+                sp_cases = [("fixed128-s2048", 1, 2048, h, None)]
+                if dtype == torch.bfloat16:
+                    sp_cases += [(f"{tname}-fixed128-b{tb}-s{ts}", tb, ts, tc.n_heads, "train")
+                                 for tname, tc, tb, ts in trains
+                                 if tname == "gptj-train" and tc.head_dim == d]
+                for name, b, s, hq, main_path in sp_cases:
+                    if block_sparse_route(dtype, d, SPARSE_ATTENTION["sparse_block"],
+                                          "fwd") != "wgmma":
+                        raise AssertionError(f"block-sparse forward {tag(name)} {dtype}: not on "
+                                             f"the wgmma route")
+                    sparse_width_case(tag(name), preset, dtype, b, s, hq, d,
+                                      SPARSE_ATTENTION["sparse_block"],
+                                      SPARSE_ATTENTION["sparse_pattern_config"],
+                                      main_path is not None, main_path)
     worst = max(r["limit_use"] for rs in out.values() for r in rs)
-    new = [r for r in out["flash_fwd"] + out["flash_bwd"]
-           if r["kernel_route"] == "wgmma" and r["old_route_ms"] is not None]
+    new = [r for rs in out.values() for r in rs
+           if r.get("kernel_route") == "wgmma" and r["old_route_ms"] is not None]
     log(f"  head dims {[w[0] for w in WIDTHS]}: {sum(len(v) for v in out.values())} cases, "
         f"each within its limit (worst {worst:.2f} of a limit); {len(new)} on the wgmma route, "
         f"worst {max(r['limit_use'] for r in new):.2f} of a limit, each timed against the wmma "
@@ -1636,7 +1711,7 @@ def width_bf16_card_vs_cpu(torch, make, label, rng):
     against the CPU port's on the same masters: its loss and every grad;
     each within ``bf16_limit`` of an fp32 evaluation on the card. The card's
     runs launch the flash kernels on the route ``attention_route`` gives
-    (the forward on wgmma; the backward too at head_dim 80 and 96); the
+    (the forward and the backward on wgmma at head_dim 80, 96 and 256); the
     CPU port's launch none."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference import DeepSpeedInferenceConfig, InferenceEngine
@@ -1761,11 +1836,15 @@ def phase_width_paths(torch, checked):
     with prefill ms and decode ms/token from ``last_timing``; every prefill
     launches one flash forward a layer, all on the wgmma route, at a shape
     phase 2 held. One GPT-J-6B prefill of the 1984-token prompt under the
-    profiler. Then phase 6's training loop on OPT-2.7B (``phase_training``
-    with ``width``): 32 flash forwards, 32 flash backwards and one CE
-    forward a step, all on the wgmma route. ``checked``: the shapes phase 2
-    held (``"prefill"``: (batch, bucket, heads, kv heads, head_dim);
-    ``"flash"`` and ``"ce"`` as ``phase_training`` reads them)."""
+    profiler. Then phase 6's training loop (``phase_training`` with
+    ``width``) on OPT-2.7B: 32 flash forwards, 32 flash backwards and one CE
+    forward a step, all on the wgmma route; and on GPT-J-6B at full width
+    and GPTJ_TRAIN_LAYERS layers, with flash attention (a flash forward and
+    backward a layer, all on wgmma: the head_dim 256 backward) and with
+    block-sparse attention (a block-sparse forward a layer on wgmma, its
+    backward on wmma). ``checked``: the shapes phase 2 held (``"prefill"``:
+    (batch, bucket, heads, kv heads, head_dim); ``"flash"``,
+    ``"block_sparse"`` and ``"ce"`` as ``phase_training`` reads them)."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -1842,7 +1921,13 @@ def phase_width_paths(torch, checked):
     out["generate_launches"] = dict(LAUNCH_COUNTS)
     log(f"  launches on phase 10's generate path: {out['generate_launches']}")
     log("  train_batch on OPT-2.7B")
-    out["train"] = phase_training(torch, checked, width=True)
+    out["train"] = phase_training(torch, checked, width="opt-2.7b")
+    torch.cuda.empty_cache()
+    log(f"  train_batch on GPT-J-6B ({GPTJ_TRAIN_LAYERS} layers), flash attention")
+    out["train_gptj"] = phase_training(torch, checked, width="gptj-6b")
+    torch.cuda.empty_cache()
+    log(f"  train_batch on GPT-J-6B ({GPTJ_TRAIN_LAYERS} layers), block-sparse attention")
+    out["train_gptj_sparse"] = phase_training(torch, checked, sparse=True, width="gptj-6b")
     return out
 
 
@@ -1910,15 +1995,17 @@ def phase_sparse_kernels(torch, F):
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True)
         ref, ref_lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal,
                                                             return_lse=True)
-        route = block_sparse_route(dtype, dd, block)
+        routes = {part: block_sparse_route(dtype, dd, block, part) for part in ("fwd", "bwd")}
         grads = block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal)
         refs = block_sparse_attention_bwd_reference(q, k, v, ref, ref_lse, do, lists,
                                                     causal=causal)
         # the wmma kernels at the same shape hold the plain version too
         old_grads = (block_sparse_attention_bwd(q, k, v, ref, ref_lse, do, lists, causal=causal,
-                                                _route="wmma") if route == "wgmma" else None)
+                                                _route="wmma")
+                     if routes["bwd"] == "wgmma" else None)
         old_fwd = (block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True,
-                                              _route="wmma") if route == "wgmma" else None)
+                                              _route="wmma")
+                   if routes["fwd"] == "wgmma" else None)
         torch.cuda.synchronize()
         label = f"block-sparse {name} {dtype}"
         if dtype == torch.float32:
@@ -1953,9 +2040,9 @@ def phase_sparse_kernels(torch, F):
                       density=attn.density, tolerance=tol)
         f = dict(common, max_abs_err=(o.float() - ref.float()).abs().max().item(),
                  lse_max_abs_err=(lse - ref_lse).abs().max().item(), limit_use=use,
-                 lse_limit_use=lse_use, kernel_route=route, old_route_ms=None)
+                 lse_limit_use=lse_use, kernel_route=routes["fwd"], old_route_ms=None)
         g = dict(common, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-                 limit_use=max(uses.values()), limit_use_by_grad=uses, kernel_route=route,
+                 limit_use=max(uses.values()), limit_use_by_grad=uses, kernel_route=routes["bwd"],
                  old_route_ms=None)
         del limit, limits, grads, refs, old_grads, old_fwd
         if (name, dtype) in {(t[0], t[-1]) for t in timed}:
@@ -1972,7 +2059,7 @@ def phase_sparse_kernels(torch, F):
                          bound_by="operations" if t_ops >= t_bytes else "bytes")
             fwd = lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
                                                      return_lse=True)
-            if route == "wgmma":
+            if routes["fwd"] == "wgmma":
                 f["ms"], f["old_route_ms"] = route_turns(
                     fwd, lambda: block_sparse_attention_fwd(q, k, v, lists, causal=causal,
                                                             return_lse=True, _route="wmma"), 20)
@@ -1982,7 +2069,7 @@ def phase_sparse_kernels(torch, F):
                 q, k, v, lists, causal=causal, return_lse=True), 3)
             kernel = lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
                                                         causal=causal)
-            if route == "wgmma":
+            if routes["bwd"] == "wgmma":
                 g["ms"], g["old_route_ms"] = route_turns(
                     kernel, lambda: block_sparse_attention_bwd(q, k, v, o, lse, do, lists,
                                                                causal=causal, _route="wmma"), 20)
@@ -2107,27 +2194,36 @@ def model_flops_per_step(cfg, tokens, seq, pairs=None):
             + 12 * cfg.n_layers * cfg.head_dim * cfg.n_heads * pairs * (tokens // seq))
 
 
-def phase_training(torch, checked, sparse=False, width=False):
-    """Phase 6 (or, with ``sparse``, phase 8; with ``width``, phase 10's
-    step): ``initialize`` -> ``train_batch`` on full GPT-2 medium at
+def phase_training(torch, checked, sparse=False, width=None):
+    """Phase 6 (or, with ``sparse``, phase 8; with ``width``, one of phase
+    10's steps): ``initialize`` -> ``train_batch`` on full GPT-2 medium at
     bench.py's shape and config (phase 8: with block-sparse attention; phase
-    10: full OPT-2.7B at WIDTH_TRAIN_BATCH x WIDTH_TRAIN_SEQ with the same
-    engine config), on one fixed batch drawn from seed 0: TRAIN_WARMUP
-    warm-up steps, then TRAIN_STEPS timed steps, each ended by a host read
-    of its loss; the launch counts read around every step; one more step
-    under torch.profiler. Phase 8 also takes one ``eval_batch`` (forward
-    kernels only). The attention and CE shapes must have been held against
-    the plain versions in phase 2."""
+    10, ``width="opt-2.7b"``: full OPT-2.7B at WIDTH_TRAIN_BATCH x
+    WIDTH_TRAIN_SEQ, ``width="gptj-6b"``: GPT-J-6B at full width and
+    GPTJ_TRAIN_LAYERS layers at GPTJ_TRAIN_BATCH x GPTJ_TRAIN_SEQ, with flash
+    or, with ``sparse``, block-sparse attention; the same engine config), on
+    one fixed batch drawn from seed 0: TRAIN_WARMUP warm-up steps, then
+    TRAIN_STEPS timed steps, each ended by a host read of its loss; the
+    launch counts read around every step (every flash and CE launch, and
+    every block-sparse forward, on the wgmma route; the block-sparse
+    backward on the route ``block_sparse_route`` gives its width); one more
+    step under torch.profiler. The block-sparse runs also take one
+    ``eval_batch`` (forward kernels only). The attention and CE shapes must
+    have been held against the plain versions in phase 2."""
     import numpy as np
 
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import CausalLM
     from deepspeed_tpu_torch.models.transformer import _block_sparse_attn
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import block_sparse_route
 
-    if width:
+    if width == "opt-2.7b":
         cfg, n_batch, seq, config = (width_train_model_config(), WIDTH_TRAIN_BATCH,
                                      WIDTH_TRAIN_SEQ, WIDTH_TRAIN_CONFIG)
+    elif width == "gptj-6b":
+        cfg, n_batch, seq, config = (gptj_train_model_config(sparse), GPTJ_TRAIN_BATCH,
+                                     GPTJ_TRAIN_SEQ, GPTJ_TRAIN_CONFIG)
     else:
         cfg = train_sparse_model_config() if sparse else train_model_config()
         n_batch, seq, config = TRAIN_BATCH, TRAIN_SEQ, TRAIN_CONFIG
@@ -2147,16 +2243,19 @@ def phase_training(torch, checked, sparse=False, width=False):
     t0 = time.perf_counter()
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=config)
     torch.cuda.synchronize()
-    name = "OPT-2.7B" if width else "GPT-2 medium"
+    name = {"opt-2.7b": "OPT-2.7B", "gptj-6b": f"GPT-J-6B ({L} of 28 layers)"}.get(
+        width, "GPT-2 medium")
     log(f"  init {name} ({cfg.num_params() / 1e6:.1f} M params, fp32 masters, bf16 "
         f"compute) in {time.perf_counter() - t0:.3f} s")
     batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size, (n_batch, seq))}
-    # every CE launch, flash launch and block-sparse launch of the step on
-    # the TMA + wgmma route
+    # every CE launch, flash launch and block-sparse forward of the step on
+    # the TMA + wgmma route; the block-sparse backward on its width's route
     if sparse:
+        bwd_wgmma = L if block_sparse_route(torch.bfloat16, cfg.head_dim, cfg.sparse_block,
+                                            "bwd") == "wgmma" else 0
         expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
                     "block_sparse_attention_fwd_wgmma": L,
-                    "block_sparse_attention_bwd_wgmma": L, "fused_ce_forward": 1,
+                    "block_sparse_attention_bwd_wgmma": bwd_wgmma, "fused_ce_forward": 1,
                     "fused_ce_forward_wgmma": 1, "flash_attention_fwd": 0,
                     "flash_attention_bwd": 0}
     else:
@@ -2194,9 +2293,16 @@ def phase_training(torch, checked, sparse=False, width=False):
         (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
     tokens = n_batch * seq
     flops = model_flops_per_step(cfg, tokens, seq, pairs)
-    if width:
+    if width == "opt-2.7b":
         model = "opt-2.7b (registry: vocab 50272, flash, no remat, fused CE pallas)"
         formula = "6 N T + 12 L d_head h (causal pairs) (T / seq)"
+    elif width == "gptj-6b":
+        model = (f"gptj-6b at full width, {L} of its 28 layers (registry: vocab 50400, untied "
+                 f"biased head, partial rotary, no remat, fused CE pallas) with "
+                 + ("block-sparse attention: fixed, block 128, 4 local, 1 global" if sparse
+                    else "flash attention"))
+        formula = ("6 N T + 12 L d_head h (the layout's kept pairs) (T / seq)" if sparse else
+                   "6 N T + 12 L d_head h (causal pairs) (T / seq)")
     elif sparse:
         model = ("gpt2-medium (bench.py: vocab 50304, no remat, fused CE pallas) with "
                  "block-sparse attention: fixed, block 128, 4 local, 1 global")
@@ -2769,7 +2875,7 @@ def main():
                          for c in train_cases["flash_bwd"] if c["s_q"] == c["s_kv"]}
                | (width_checked["train"] & width_checked["train_bwd"]),
                "ce": {(c["tokens"], c["d"], c["vocab"]) for c in train_cases["ce"]},
-               "block_sparse": sparse_checked}
+               "block_sparse": sparse_checked | width_checked["block_sparse"]}
 
     log("phase 3: card against the CPU port (Llama-7B width, 2 layers, fp32)")
     parity_err = phase_card_vs_cpu(torch)
@@ -2822,7 +2928,9 @@ def main():
 
     log("phase 10: head dims 80, 96 and 256 on their bf16 main paths at full width and depth "
         "(generate() on GPT-J-6B, GPT-NeoX-20B, OPT-2.7B; train_batch() on OPT-2.7B, "
-        f"b{WIDTH_TRAIN_BATCH} x s{WIDTH_TRAIN_SEQ})")
+        f"b{WIDTH_TRAIN_BATCH} x s{WIDTH_TRAIN_SEQ}, and on GPT-J-6B cut to "
+        f"{GPTJ_TRAIN_LAYERS} layers, b{GPTJ_TRAIN_BATCH} x s{GPTJ_TRAIN_SEQ}, flash and "
+        "block-sparse)")
     reset_launch_counts()
     t = time.perf_counter()
     width_paths = phase_width_paths(torch, dict(checked, prefill=width_checked["prefill"]))
@@ -2838,7 +2946,9 @@ def main():
                "train_block_sparse": sparse_training["launches"],
                "widths": widths_launches,
                "widths_generate": width_paths["generate_launches"],
-               "widths_train": width_paths["train"]["launches"]}
+               "widths_train": width_paths["train"]["launches"],
+               "widths_train_gptj": width_paths["train_gptj"]["launches"],
+               "widths_train_gptj_sparse": width_paths["train_gptj_sparse"]["launches"]}
     path_kernels = {"generate": ("flash_attention_fwd",),
                     "serve": ("flash_attention_fwd", "paged_flash_decode"),
                     "train": ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_forward"),
@@ -2852,26 +2962,35 @@ def main():
                                "block_sparse_attention_fwd", "block_sparse_attention_bwd"),
                     "widths_generate": ("flash_attention_fwd",),
                     "widths_train": ("flash_attention_fwd", "flash_attention_bwd",
-                                     "fused_ce_forward")}
+                                     "fused_ce_forward"),
+                    "widths_train_gptj": ("flash_attention_fwd", "flash_attention_bwd",
+                                          "fused_ce_forward"),
+                    "widths_train_gptj_sparse": ("block_sparse_attention_fwd",
+                                                 "block_sparse_attention_bwd",
+                                                 "fused_ce_forward")}
     for path, names in path_kernels.items():
         for name in names:
             if by_path[path][name] == 0:
                 raise AssertionError(f"kernel {name} was never launched on the {path} path")
     # phases 4-7 run 16-bit attention at head_dim 128 and 64, phase 10 at 80,
-    # 96 and 256 (its training at 80): every flash launch there takes the
-    # TMA + wgmma route
+    # 96 and 256 (its training at 80 and 256): every flash launch there takes
+    # the TMA + wgmma route
     for path in ("generate", "serve", "train", "quant_generate_int8", "quant_serve_int8",
-                 "quant_generate_int4", "widths_generate", "widths_train"):
+                 "quant_generate_int4", "widths_generate", "widths_train", "widths_train_gptj"):
         for name in ("flash_attention_fwd", "flash_attention_bwd"):
             if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
                 raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                      f"{by_path[path][name]} {name} launches on the wgmma route")
-    # phases 6 and 8: every CE launch, and every block-sparse launch, on the
-    # TMA + wgmma route
+    # phases 6, 8 and 10: every CE launch, and every block-sparse launch
+    # (phase 10's GPT-J-6B: its forwards; its backward at head_dim 256 takes
+    # the wmma route, which phase_training counts), on the TMA + wgmma route
     for path, name in (("train", "fused_ce_forward"), ("train_block_sparse", "fused_ce_forward"),
                        ("widths_train", "fused_ce_forward"),
+                       ("widths_train_gptj", "fused_ce_forward"),
+                       ("widths_train_gptj_sparse", "fused_ce_forward"),
                        ("train_block_sparse", "block_sparse_attention_fwd"),
-                       ("train_block_sparse", "block_sparse_attention_bwd")):
+                       ("train_block_sparse", "block_sparse_attention_bwd"),
+                       ("widths_train_gptj_sparse", "block_sparse_attention_fwd")):
         if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
             raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                  f"{by_path[path][name]} {name} launches on the wgmma route")
@@ -2986,9 +3105,9 @@ def main():
         "launches_by_path": {p: c["flash_attention_bwd"] for p, c in by_path.items()},
         "launches_by_route": by_route("flash_attention_bwd"),
         "kernel_route": bwd_main["kernel_route"],
-        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64, 80, 96 and 128; wmma: the "
-                  "rest (fp32, head_dim 32 and 256); old_route_ms: the wmma kernels forced at "
-                  "the same shape, in turns",
+        "routes": "wgmma: TMA + wgmma, bf16/fp16 at head_dim 64, 80, 96, 128 and 256; wmma: "
+                  "the rest (fp32, head_dim 32); old_route_ms: the wmma kernels forced at the "
+                  "same shape, in turns",
         "widths_bf16": width_head["flash_bwd"],
         "old_route_ms": bwd_main["old_route_ms"],
         "max_abs_err": bwd_main["max_abs_err"],
@@ -3090,9 +3209,10 @@ def main():
         "launches_by_route": by_route(f"block_sparse_attention_{part}"),
         "kernel_route": head["kernel_route"], "old_route_ms": head["old_route_ms"],
         "routes": f"wgmma: the flash {'forward' if part == 'fwd' else 'backward'}'s TMA + "
-                  "wgmma kernels over the layout's lists, bf16/fp16 at head_dim 64 and 128 with "
-                  "blocks a multiple of 128; wmma: the rest; old_route_ms: the wmma kernels "
-                  "forced at the same shape, in turns",
+                  "wgmma kernels over the layout's lists, bf16/fp16 at head_dim "
+                  + ("64, 80, 96, 128 and 256" if part == "fwd" else "64 and 128")
+                  + " with blocks a multiple of 128; wmma: the rest; old_route_ms: the wmma "
+                  "kernels forced at the same shape, in turns",
         "long_s4096": {k: long_case[part][k] for k in ("ms", "old_route_ms", "library_ms",
                                                        "flash_ms", "bound_ms", "max_abs_err")},
         "launches": sum(c[f"block_sparse_attention_{part}"] for c in by_path.values()),
@@ -3116,7 +3236,11 @@ def main():
         f"block-sparse {sparse_training['step_ms_median']:.1f} ms; phase 9 "
         f"{sum(r['seconds'] for r in widths.values()):.1f} s; phase 10: OPT-2.7B step "
         f"{width_paths['train']['step_ms_median']:.1f} ms ({width_paths['train']['peak_gib']:.2f} "
-        f"GiB), GPT-J-6B warm 1984-token prefill {gptj_prefill:.2f} ms, phase "
+        f"GiB), GPT-J-6B step flash {width_paths['train_gptj']['step_ms_median']:.1f} ms "
+        f"({width_paths['train_gptj']['peak_gib']:.2f} GiB), block-sparse "
+        f"{width_paths['train_gptj_sparse']['step_ms_median']:.1f} ms "
+        f"({width_paths['train_gptj_sparse']['peak_gib']:.2f} GiB), GPT-J-6B warm 1984-token "
+        f"prefill {gptj_prefill:.2f} ms, phase "
         f"{width_paths_s:.1f} s; total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"requests": requests}))
     log(json.dumps({"profile": profile}))

@@ -51,22 +51,24 @@
 // ms at 3.35 TB/s: bytes bound it.
 //
 // Every kernel has two routes, fixed by the caller before the launch
-// (ops/cuda/block_sparse_attention.py block_sparse_route): the wgmma route
-// (bf16 / fp16 at head_dim 64 and 128 with a block that is a multiple of 128,
-// the training layout's; ds_block_sparse_attention_fwd_wgmma and
+// (ops/cuda/block_sparse_attention.py block_sparse_route, per kernel): the
+// wgmma route (bf16 / fp16 with a block that is a multiple of 128, the
+// training layout's; the forward at head_dim 64, 80, 96, 128 and 256, the
+// backward at 64 and 128; ds_block_sparse_attention_fwd_wgmma and
 // ds_block_sparse_attention_bwd_wgmma at the end of this file) runs the flash
 // kernels' TMA + wgmma designs (csrc/flash_fwd_sm90.cuh, csrc/flash_bwd_sm90.cuh)
 // with a list-driven tile schedule: a 128-token layout block is exactly one
 // 128-row q tile of the forward and of the dQ kernel, one 128-row kv tile of
-// the forward and of the dK/dV kernel, so the forward walks the 128-row kv
-// tiles of its list's kv blocks, the dQ block their 64-row halves and the
-// dK/dV block the q tiles of its transposed list's q blocks; the producer
-// thread reads the list and issues the TMA loads from it, the consumers take
-// each tile's first key from the same list to mask the diagonal. The grid
-// takes the layout rows longest list first (SparseLayout's orders). The other
-// shapes (fp32, head_dims 32/80/96/256, blocks not a multiple of 128) take
-// the wmma route below: the port's simple flash design
-// (csrc/flash_attention_{fwd,bwd}.cu) with sparse loops.
+// the forward (two 64-row ones at head_dim 256) and of the dK/dV kernel, so
+// the forward walks the kv tiles of its list's kv blocks, the dQ block their
+// 64-row halves and the dK/dV block the q tiles of its transposed list's q
+// blocks; the producer thread reads the list and issues the TMA loads from
+// it, the consumers take each tile's first key from the same list to mask
+// the diagonal. The grid takes the layout rows longest list first
+// (SparseLayout's orders). The other shapes (fp32, head_dim 32, the
+// backward at 80/96/256, blocks not a multiple of 128) take the wmma route
+// below: the port's simple flash design (csrc/flash_attention_{fwd,bwd}.cu)
+// with sparse loops.
 //
 // The wmma route's design: TILE / 16 warps per block (TILE = 16, 32 or 64),
 // each owning 16 rows of the block's tile end to end. Tiles are staged in
@@ -817,13 +819,33 @@ extern "C" int ds_block_sparse_attention_bwd(
 }
 
 // ===================================================================================
-// The wgmma route: bf16 / fp16 at head_dim 64 and 128, blocks a multiple of
-// 128, on the kernels of csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh
-// with the layout's lists as their tile schedule (ListFwd; ListDq, ListDkv).
+// The wgmma route: bf16 / fp16 with blocks a multiple of 128, the forward at
+// head_dim 64, 80, 96, 128 and 256 and the backward at 64 and 128, on the
+// kernels of csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh with the
+// layout's lists as their tile schedule (ListFwd; ListDq, ListDkv).
 // ===================================================================================
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t list_fwd(const void* q, const void* k, const void* v, const flash_fwd_sm90::Args& a,
+                     int batch, int head_dim, const long long* strides,
+                     const flash_fwd_sm90::ListParams& lists, cudaStream_t s) {
+  namespace ff = flash_fwd_sm90;
+  switch (head_dim) {
+    case 64: return ff::launch<T, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    case 80: return ff::launch<T, 80, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    case 96: return ff::launch<T, 96, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    case 128: return ff::launch<T, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    case 256: return ff::launch<T, 256, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 // The forward: the arguments as ds_block_sparse_attention_fwd's, and q_order,
 // the grid's order of the layout's q blocks (a permutation, int32). Every
@@ -852,14 +874,8 @@ extern "C" int ds_block_sparse_attention_fwd_wgmma(
   const ff::ListParams lists{idx, cnt, q_order, max_a, block};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    err = ff::launch<__half, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-  if (dtype == 1 && head_dim == 128)
-    err = ff::launch<__half, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-  if (dtype == 2 && head_dim == 64)
-    err = ff::launch<__nv_bfloat16, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-  if (dtype == 2 && head_dim == 128)
-    err = ff::launch<__nv_bfloat16, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+  if (dtype == 1) err = list_fwd<__half>(q, k, v, a, batch, head_dim, strides, lists, s);
+  if (dtype == 2) err = list_fwd<__nv_bfloat16>(q, k, v, a, batch, head_dim, strides, lists, s);
   return (int)err;
 }
 

@@ -33,12 +33,14 @@
 // bytes (q, k, v, o, dO, lse in, dq, dk, dv out) take about 0.05 ms at 3.35 TB/s.
 //
 // Two routes, as in the forward (ops/cuda/flash_attention.py
-// attention_route): the wgmma route for bf16 and fp16 at head_dim 64, 80, 96
-// and 128 (ds_flash_attention_bwd_wgmma at the end of this file: the kernels
-// of csrc/flash_bwd_sm90.cuh, which the block-sparse backward shares, over
-// the dense causal range) and the wmma route below (ds_flash_attention_bwd)
-// for the rest: fp32, and 16-bit at head_dim 32 and 256 (whose dK and dV for
-// 64 kv rows would take 256 fp32 registers a thread).
+// attention_route): the wgmma route for bf16 and fp16 at head_dim 64, 80, 96,
+// 128 and 256 (ds_flash_attention_bwd_wgmma at the end of this file: the
+// kernels of csrc/flash_bwd_sm90.cuh, which the block-sparse backward shares,
+// over the dense causal range; at 256 with 32-row K/V tiles in the dQ kernel
+// and the dK/dV kernel's two warpgroups splitting the columns) and the wmma
+// route below (ds_flash_attention_bwd) for the rest: fp32, and 16-bit at
+// head_dim 32. The wmma kernels also take every 16-bit shape when the
+// caller forces them (the old route timed against the new one).
 //
 // The wmma route's design (a simple right kernel, like the forward's): 4
 // warps per block, each owning 16 rows of the block's tile end to end, so
@@ -614,7 +616,7 @@ extern "C" int ds_flash_attention_bwd(
 }
 
 // ===================================================================================
-// The wgmma route: bf16 / fp16 at head_dim 64, 80, 96 and 128, on TMA and wgmma: the
+// The wgmma route: bf16 / fp16 at head_dim 64, 80, 96, 128 and 256, on TMA and wgmma: the
 // kernels of csrc/flash_bwd_sm90.cuh (a delta / lse2 pass, the dQ kernel and
 // the dK/dV kernel, every accumulator in registers) over the dense causal
 // range, the longest rows first. The block-sparse backward runs the same
@@ -635,13 +637,14 @@ cudaError_t launch_wgmma(const void* const* ptr, const flash_bwd_sm90::Args& a, 
     case 80: return fb::launch<T, 80, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
     case 96: return fb::launch<T, 96, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
     case 128: return fb::launch<T, 128, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
+    case 256: return fb::launch<T, 256, fb::DenseDq, fb::DenseDkv>(ptr, a, batch, none, none, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64, 80, 96 or 128; the
+// The wgmma route: dtype 1 = float16, 2 = bfloat16; head_dim 64, 80, 96, 128 or 256; the
 // arguments as ds_flash_attention_bwd's, except that `scratch` is the
 // caller's fp32 buffer of 2 * batch * heads * s_pad floats, s_pad = s_q
 // rounded up to a multiple of 128 (lse2 rows, then delta rows), which the

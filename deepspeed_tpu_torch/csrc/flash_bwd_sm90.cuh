@@ -1,6 +1,6 @@
 // The flash-attention backward on Hopper (sm_90a) with TMA and wgmma, bf16 /
-// fp16 at head_dim 64, 80, 96 and 128, driven by a tile schedule: shared by
-// the dense flash backward (csrc/flash_attention_bwd.cu, the dense causal
+// fp16 at head_dim 64, 80, 96, 128 and 256, driven by a tile schedule: shared
+// by the dense flash backward (csrc/flash_attention_bwd.cu, the dense causal
 // range, every width) and the block-sparse backward
 // (csrc/block_sparse_attention.cu, the layout's lists, head_dim 64 and 128).
 //
@@ -9,8 +9,23 @@
 // with zeros, the K-major products (S, dP, S^T, dP^T) issue only D / 16
 // k-steps, the products whose B is read MN-major (dS K, P^T dO, dS^T Q) run
 // at N = DP, and the prep pass and the dQ, dK and dV stores touch only the D
-// real columns. Head_dim 256 is not taken: dK and dV for 64 kv rows would be
-// 2 x 64 x 256 fp32 accumulators over 128 threads, 256 registers a thread.
+// real columns.
+//
+// Head_dim 256 changes two tiles (DqCfg, DkvCfg). The dQ kernel takes 32-row
+// K/V tiles: Q and dO (2 x 64 KB) and a 3-stage ring of 64-row tiles (3 x 64
+// KB) would not fit 227 KB, 32-row ones (3 x 32 KB) do; dQ is 128 fp32
+// registers a thread, dQ += dS K one m64n256k16 per 16 keys. The dK/dV kernel
+// cannot give each warpgroup 64 kv rows of both dK and dV (2 x 64 x 256 fp32
+// over 128 threads: 256 registers a thread), so at 256 a block takes 64 kv
+// rows and each consumer warpgroup owns half the columns of both (64 + 64
+// registers). The products over all 256 columns are split between them
+// instead of repeated: warpgroup 0 issues S^T = K Q^T and warpgroup 1 dP^T =
+// V dO^T, and each hands its fp32 tile to the other through shared memory
+// (two buffers by q tile parity, one named barrier per q tile). Both then
+// form the same P^T and dS^T in registers and issue dV += P^T dO and dK +=
+// dS^T Q at N 128 over their own columns of dO and Q: the unsplit kernel's
+// count of products (no operand read twice), for 16 KB of fp32 exchanged a
+// q tile.
 //
 // Three kernels in one call, with every accumulator in registers:
 //   * prep_kernel: per (b*h, row) of a q length padded to 128, delta = rowsum(dO * O)
@@ -20,24 +35,27 @@
 //     warpgroups of 64 q rows and a producer warpgroup (one thread issues
 //     the loads; setmaxnreg hands its registers to the consumers, 24 a
 //     thread against their 240). Q and dO are loaded once by TMA; the
-//     64-row K and V tiles of the schedule stream through a 3-stage mbarrier
-//     ring. Per tile t: S_t = Q K_t^T and dP_t = dO V_t^T by wgmma (A and B
-//     from shared memory, K-major) are issued together with the previous
-//     tile's dQ += dS_{t-1} K_{t-1} (A = dS from registers, B = the K tile
-//     read MN-major); once S_t and dP_t are done, P = exp2(S scale log2 e -
-//     lse2) and dS = P (dP - delta) scale are computed in registers while
-//     that product runs, and dS is rounded to q's type. A tile's K is read
-//     until the next tile's products, hence the third stage;
+//     64-row K and V tiles (32 at head_dim 256) of the schedule stream
+//     through a 3-stage mbarrier ring. Per tile t: S_t = Q K_t^T and dP_t =
+//     dO V_t^T by wgmma (A and B from shared memory, K-major) are issued
+//     together with the previous tile's dQ += dS_{t-1} K_{t-1} (A = dS from
+//     registers, B = the K tile read MN-major); once S_t and dP_t are done,
+//     P = exp2(S scale log2 e - lse2) and dS = P (dP - delta) scale are
+//     computed in registers while that product runs, and dS is rounded to
+//     q's type. A tile's K is read until the next tile's products, hence
+//     the third stage;
 //   * dkv_kernel: one block per (b*kv_heads, 128-row kv tile), two consumer
-//     warpgroups of 64 kv rows and a producer warpgroup. K and V are loaded
-//     once; the q tiles of the schedule (64 rows at head_dim 64, 32 at 80,
-//     96 and 128, which keeps dK and dV in registers), over every query head of the kv
-//     head's group, stream through a 3-stage ring with their lse2 and delta
-//     rows (bulk copies). Per q tile n: S^T_n = K Q_n^T and dP^T_n = V dO_n^T
-//     (K-major, shared memory) are issued together with the previous tile's
-//     dV += P^T dO (P^T rounded to dO's type) and dK += dS^T Q (A from
-//     registers, B = dO, Q read MN-major); P^T_n and dS^T_n are computed in
-//     registers, with lse2 and delta read per column, while those run.
+//     warpgroups of 64 kv rows (at head_dim 256: a 64-row kv tile, the
+//     warpgroups splitting its columns, above) and a producer warpgroup. K
+//     and V are loaded once; the q tiles of the schedule (64 rows at
+//     head_dim 64, 32 at 80, 96, 128 and 256, which keeps dK and dV in
+//     registers), over every query head of the kv head's group, stream
+//     through a 3-stage ring with their lse2 and delta rows (bulk copies).
+//     Per q tile n: S^T_n = K Q_n^T and dP^T_n = V dO_n^T (K-major, shared
+//     memory) are issued together with the previous tile's dV += P^T dO
+//     (P^T rounded to dO's type) and dK += dS^T Q (A from registers, B =
+//     dO, Q read MN-major); P^T_n and dS^T_n are computed in registers, with
+//     lse2 and delta read per column, while those run.
 // Nothing is transposed in memory, there are no atomics (the result does not
 // depend on the launch), and each output is rounded once. A block whose
 // schedule holds no tile writes zeros.
@@ -78,7 +96,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // the width in whole 64-column panels (80, 96 -> 128)
 template <int D>
 constexpr int padded_width() {
-  static_assert(D % 16 == 0 && D <= 128, "wgmma backward head_dim");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 256), "wgmma backward head_dim");
   return (D + 63) / 64 * 64;
 }
 
@@ -86,7 +104,7 @@ template <int D>
 struct DqCfg {
   static constexpr int DP = padded_width<D>();
   static constexpr int BQ = 64 * CONSUMERS;
-  static constexpr int BKV = 64;
+  static constexpr int BKV = DP > 128 ? 32 : 64;   // head_dim 256: 64 + 64 + 3 x 32 KB
   static constexpr int STAGES = 3;   // tile t's K is read until tile t + 1's products
   static constexpr int PANELS = DP / 64;
   static constexpr int Q_BYTES = BQ * DP * 2;       // one of the Q, dO tiles (zero fill counts)
@@ -102,7 +120,12 @@ struct DqCfg {
 template <int D>
 struct DkvCfg {
   static constexpr int DP = padded_width<D>();
-  static constexpr int BKV = 64 * CONSUMERS;
+  // head_dim 256: both warpgroups take the block's 64 kv rows, each DW of the
+  // columns, and trade S^T and dP^T through shared memory
+  static constexpr bool SPLIT = DP > 128;
+  static constexpr int BKV = SPLIT ? 64 : 64 * CONSUMERS;
+  static constexpr int WG_ROWS = SPLIT ? 0 : 64;    // kv rows between the warpgroups' first
+  static constexpr int DW = SPLIT ? DP / CONSUMERS : DP;   // dK, dV columns a warpgroup owns
   static constexpr int BQ = DP == 64 ? 64 : 32;
   static constexpr int STAGES = 3;   // q tile n is read until q tile n + 1's products
   static constexpr int PANELS = DP / 64;
@@ -110,9 +133,12 @@ struct DkvCfg {
   static constexpr int QT_BYTES = BQ * DP * 2;      // one of the Q, dO tiles
   static constexpr int TX_BYTES = 2 * QT_BYTES + 2 * BQ * 4;   // + lse2 and delta rows
   static constexpr int STAGE_BYTES = (TX_BYTES + 1023) / 1024 * 1024;
+  static constexpr int X_BYTES = 64 * BQ * 4;       // one warpgroup's S^T or dP^T tile, fp32
   static constexpr int v_off = KV_BYTES;
   static constexpr int st_off = 2 * KV_BYTES;
-  static constexpr int bar_off = st_off + STAGES * STAGE_BYTES;
+  // SPLIT: the exchange, [q tile parity][warpgroup] tiles
+  static constexpr int x_off = st_off + STAGES * STAGE_BYTES;
+  static constexpr int bar_off = x_off + (SPLIT ? 2 * CONSUMERS * X_BYTES : 0);
   static constexpr int bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(bytes <= 232448, "wgmma dK/dV shared memory");
 };
@@ -346,6 +372,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const auto issue_sdp = [&](int t) {
       const uint32_t kd = base + C::kv_off + (t % STAGES) * C::STAGE_BYTES;
       const uint32_t vd = kd + C::KV_BYTES;
+      // Q's and dO's descriptors are the same for every tile; kept out of
+      // the loop they would hold two registers each (64 at head_dim 256)
+      uint32_t qt = qa, dt = da;
+      asm volatile("" : "+r"(qt), "+r"(dt));
       fence_regs(s);
       fence_regs(dp);
       fence_regs(dq);
@@ -353,11 +383,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BKV, T>(s, sw128_desc(qa + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
+        wgmma_ss<BKV, T>(s, sw128_desc(qt + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
                          sw128_desc(kd + (kk >> 2) * BKV * 128 + 32 * (kk & 3)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BKV, T>(dp, sw128_desc(da + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
+        wgmma_ss<BKV, T>(dp, sw128_desc(dt + (kk >> 2) * BQ * 128 + 32 * (kk & 3)),
                          sw128_desc(vd + (kk >> 2) * BKV * 128 + 32 * (kk & 3)), kk > 0);
       wgmma_commit();
     };
@@ -508,26 +538,28 @@ __global__ void __launch_bounds__(THREADS, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
 
   const int wg = warp >> 2;
-  const int krow0 = kv0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows +0, +8
+  const int krow0 = kv0 + wg * C::WG_ROWS + (warp & 3) * 16 + (lane >> 2);  // rows +0, +8
   const int cq = 2 * (lane & 3);
 
-  float dk[DP / 2], dv[DP / 2];   // the padded columns stay zero and are not stored
+  float dk[C::DW / 2], dv[C::DW / 2];   // the padded columns stay zero and are not stored
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) {
+  for (int i = 0; i < C::DW / 2; ++i) {
     dk[i] = 0.0f;
     dv[i] = 0.0f;
   }
 
   if (n_iter > 0) {
     const float sl2 = a.scale * LOG2E;
-    const int wg_last_row = kv0 + wg * 64 + 63;
-    const uint32_t ka = base + wg * 64 * 128;
-    const uint32_t va = base + C::v_off + wg * 64 * 128;
+    const int wg_last_row = kv0 + wg * C::WG_ROWS + 63;
+    const uint32_t ka = base + wg * C::WG_ROWS * 128;
+    const uint32_t va = base + C::v_off + wg * C::WG_ROWS * 128;
+    // this warpgroup's first column panel of Q and dO in the MN-major products
+    const uint32_t col = C::SPLIT ? wg * (C::DW / 64) * BQ * 128 : 0;
     auto cur = sc.cursor();
 
     float s[BQ / 2], dp[BQ / 2];
     uint32_t pp[BQ / 16][4], pd[BQ / 16][4];   // P^T and dS^T of the previous q tile
-    // S^T_n and dP^T_n
+    // S^T_n and dP^T_n (SPLIT: S^T_n in warpgroup 0, dP^T_n in warpgroup 1, into s)
     const auto issue_sdp = [&](int n) {
       const uint32_t qd = base + C::st_off + (n % STAGES) * C::STAGE_BYTES;
       const uint32_t dod = qd + C::QT_BYTES;
@@ -538,31 +570,75 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(pp);
       fence_regs(pd);
       wgmma_fence();
+      if constexpr (C::SPLIT) {
+        // K's or V's descriptors are the same for every q tile; kept out of
+        // the loop they would hold 32 registers
+        uint32_t xa = wg == 0 ? ka : va;
+        asm volatile("" : "+r"(xa));
+        const uint32_t xb = wg == 0 ? qd : dod;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BQ, T>(s, sw128_desc(ka + (kk >> 2) * BKV * 128 + 32 * (kk & 3)),
-                        sw128_desc(qd + (kk >> 2) * BQ * 128 + 32 * (kk & 3)), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BQ, T>(s, sw128_desc(xa + (kk >> 2) * BKV * 128 + 32 * (kk & 3)),
+                          sw128_desc(xb + (kk >> 2) * BQ * 128 + 32 * (kk & 3)), kk > 0);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BQ, T>(dp, sw128_desc(va + (kk >> 2) * BKV * 128 + 32 * (kk & 3)),
-                        sw128_desc(dod + (kk >> 2) * BQ * 128 + 32 * (kk & 3)), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BQ, T>(s, sw128_desc(ka + (kk >> 2) * BKV * 128 + 32 * (kk & 3)),
+                          sw128_desc(qd + (kk >> 2) * BQ * 128 + 32 * (kk & 3)), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BQ, T>(dp, sw128_desc(va + (kk >> 2) * BKV * 128 + 32 * (kk & 3)),
+                          sw128_desc(dod + (kk >> 2) * BQ * 128 + 32 * (kk & 3)), kk > 0);
+      }
       wgmma_commit();
     };
-    // dV += P^T_n dO_n and dK += dS^T_n Q_n, from pp and pd
+    // dV += P^T_n dO_n and dK += dS^T_n Q_n, from pp and pd, over this
+    // warpgroup's DW columns
     const auto issue_dkv = [&](int n) {
-      const uint32_t qd = base + C::st_off + (n % STAGES) * C::STAGE_BYTES;
+      const uint32_t qd = base + C::st_off + (n % STAGES) * C::STAGE_BYTES + col;
       const uint32_t dod = qd + C::QT_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<DP, T>(dv, pp[kk], sw128_mn_desc(dod + kk * 2048, BQ * 128), 1);
+        wgmma_rs<C::DW, T>(dv, pp[kk], sw128_mn_desc(dod + kk * 2048, BQ * 128), 1);
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<DP, T>(dk, pd[kk], sw128_mn_desc(qd + kk * 2048, BQ * 128), 1);
+        wgmma_rs<C::DW, T>(dk, pd[kk], sw128_mn_desc(qd + kk * 2048, BQ * 128), 1);
       wgmma_commit();
+    };
+    // SPLIT: each warpgroup's product (waited for, in s) to the other through
+    // shared memory, so that s holds S^T_n and dp dP^T_n in both; a buffer
+    // per q tile parity, so one barrier a tile keeps a buffer from being
+    // written before the other warpgroup has read it (it read it before
+    // arriving at the next tile's barrier)
+    const auto exchange = [&](int n) {
+      float4* xbuf = reinterpret_cast<float4*>(smem + C::x_off) +
+                     (n & 1) * CONSUMERS * (C::X_BYTES / 16);
+      const int t = threadIdx.x & 127;
+      float4* mine = xbuf + wg * (C::X_BYTES / 16);
+      const float4* other = xbuf + (1 - wg) * (C::X_BYTES / 16);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+        mine[128 * j + t] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float4 o = other[128 * j + t];
+        const float x[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (wg == 0) {
+            dp[4 * j + e] = x[e];
+          } else {
+            dp[4 * j + e] = s[4 * j + e];
+            s[4 * j + e] = x[e];
+          }
+        }
+      }
     };
     // S^T_n, dP^T_n (waited for) -> P^T_n in s, dS^T_n in dp; lse2 and delta
     // per column from the stage; called for n = 0, 1, ... in turn
     const auto grads = [&](int n) {
+      if constexpr (C::SPLIT) exchange(n);
       int h, q0;
       cur.next(h, q0);
       const float* stats = reinterpret_cast<const float*>(
@@ -634,8 +710,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_regs(pd);
   }
 
-  T* dkg = static_cast<T*>(a.dk) + b * a.st[T_DK][0] + g * a.st[T_DK][2];
-  T* dvg = static_cast<T*>(a.dv) + b * a.st[T_DV][0] + g * a.st[T_DV][2];
+  // this warpgroup's columns: all D, or (SPLIT) its DW
+  const int c0 = C::SPLIT ? wg * C::DW : 0;
+  constexpr int NJ = C::SPLIT ? C::DW / 8 : D / 8;
+  T* dkg = static_cast<T*>(a.dk) + b * a.st[T_DK][0] + g * a.st[T_DK][2] + c0;
+  T* dvg = static_cast<T*>(a.dv) + b * a.st[T_DV][0] + g * a.st[T_DV][2] + c0;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = krow0 + 8 * hh;
@@ -643,7 +722,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       T* rk = dkg + row * a.st[T_DK][1] + cq;
       T* rv = dvg + row * a.st[T_DV][1] + cq;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         *reinterpret_cast<uint32_t*>(rk + 8 * j) =
             pack2<T>(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
         *reinterpret_cast<uint32_t*>(rv + 8 * j) =

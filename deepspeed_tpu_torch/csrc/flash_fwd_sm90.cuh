@@ -2,7 +2,7 @@
 // fp16 at head_dim 64, 80, 96, 128 and 256, driven by a tile schedule: shared
 // by the dense flash forward (csrc/flash_attention_fwd.cu, the dense causal
 // range, every width) and the block-sparse forward
-// (csrc/block_sparse_attention.cu, the layout's lists, head_dim 64 and 128).
+// (csrc/block_sparse_attention.cu, the layout's lists, every width too).
 //
 // One block per (batch*head, 128-row q tile), 384 threads: two consumer
 // warpgroups own 64 q rows each, and one thread of a producer warpgroup
@@ -50,7 +50,8 @@
 //   * DenseFwd (the flash forward): q tiles from the last (the longest causal
 //     rows first), kv tiles 0 .. the causal diagonal;
 //   * ListFwd (the block-sparse forward): a layout block is a whole number of
-//     128-row tiles (its size a multiple of 128). A q tile walks the tiles of
+//     128-row tiles (its size a multiple of 128; at head_dim 256 each kv
+//     block is walked in 64-row kv tiles). A q tile walks the tiles of
 //     the kv blocks of its q block's forward list fidx[qb, :fcnt[qb]] in the
 //     list's (ascending) order; with causal masking a tile wholly past the
 //     diagonal is skipped, not masked. The grid rows take the layout's q
@@ -126,7 +127,7 @@ struct DenseFwd {
   __device__ Cursor cursor() const { return Cursor{0}; }
 };
 
-// the block-sparse forward: the 128-row kv tiles of each listed kv block
+// the block-sparse forward: the kv tiles of each listed kv block
 template <int BQ, int BKV>
 using ListFwd = ListQ<BQ, BKV>;
 

@@ -11,12 +11,13 @@ per-q-block active kv lists and the transposed lists, on one device, built
 once; every call reads them there.
 
 Both have two routes, fixed by ``block_sparse_route(dtype, head_dim,
-block)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64 and 128
-with a block that is a multiple of 128: the flash forward's and backward's
-TMA + wgmma kernels walking the layout's lists, the grid in the layout's
-heavy-first order) and ``wmma`` (everything else the kernels take: warp-level
-wmma or fp32 FMAs through shared memory). A failed build or launch raises;
-neither route falls back to the other.
+block, kernel)`` before the launch: ``wgmma`` (bf16 and fp16 with a block
+that is a multiple of 128, the forward at head_dim 64, 80, 96, 128 and 256,
+the backward at 64 and 128: the flash forward's and backward's TMA + wgmma
+kernels walking the layout's lists, the grid in the layout's heavy-first
+order) and ``wmma`` (everything else the kernels take: warp-level wmma or
+fp32 FMAs through shared memory). A failed build or launch raises; neither
+route falls back to the other.
 
 Layout ``[b, s, h, d]`` in and out, one head count for q, k and v (the model
 repeats GQA kv heads before the call, as the JAX package does); causal
@@ -42,32 +43,38 @@ from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (
 
 NEG_INF = -1e30
 
-# the TMA + wgmma route takes 16-bit types at head_dim 64 and 128 when a
-# layout block is a whole number of its 128-row tiles (the flash kernels'
-# other widths are not instantiated over the lists)
-_WGMMA_HEAD_DIMS = (64, 128)
+# the TMA + wgmma route takes 16-bit types at these head dims, the
+# forward's and the backward's, when a layout block is a whole number of its
+# 128-row tiles (the backward's other widths are not instantiated over the
+# lists)
+_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 128)}
 _WGMMA_BLOCK = 128
 
 
-def block_sparse_route(dtype, head_dim, block):
-    """The route the block-sparse forward and backward take for ``dtype``,
-    ``head_dim`` and the layout's ``block``: a pure function of the three,
-    decided before the launch. ``"wgmma"`` for bf16/fp16 at head_dim 64 and
-    128 with a block that is a multiple of 128, ``"wmma"`` for every other
-    shape the kernels take (fp32/fp16/bf16, head_dim in ``_KERNEL_HEAD_DIMS``,
-    a block that is a multiple of 16); None where no route does."""
+def block_sparse_route(dtype, head_dim, block, kernel):
+    """The route the block-sparse ``kernel`` (``"fwd"`` or ``"bwd"``) takes
+    for ``dtype``, ``head_dim`` and the layout's ``block``: a pure function
+    of the four, decided before the launch. ``"wgmma"`` for bf16/fp16 at the
+    kernel's ``_WGMMA_HEAD_DIMS`` with a block that is a multiple of 128,
+    ``"wmma"`` for every other shape the kernels take (fp32/fp16/bf16,
+    head_dim in ``_KERNEL_HEAD_DIMS``, a block that is a multiple of 16);
+    None where no route does."""
+    if kernel not in _WGMMA_HEAD_DIMS:
+        raise ValueError(f"block_sparse_route: kernel {kernel!r} is not 'fwd' or 'bwd'")
     if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS or block <= 0 \
             or block % 16:
         return None
-    if dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS and block % _WGMMA_BLOCK == 0:
+    if (dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS[kernel]
+            and block % _WGMMA_BLOCK == 0):
         return "wgmma"
     return "wmma"
 
 
 def _pick_route(kernel, q, block, route):
-    """``block_sparse_route`` for q at ``block``, or the route ``route``
-    forces (``resolve_route``)."""
-    return resolve_route(kernel, block_sparse_route(q.dtype, q.shape[3], block), route,
+    """``block_sparse_route`` of ``kernel`` (``"fwd"`` or ``"bwd"``) for q at
+    ``block``, or the route ``route`` forces (``resolve_route``)."""
+    name = {"fwd": "block-sparse forward", "bwd": "block-sparse backward"}[kernel]
+    return resolve_route(name, block_sparse_route(q.dtype, q.shape[3], block, kernel), route,
                          f"{q.dtype} at head_dim {q.shape[3]} and block {block}")
 
 
@@ -289,15 +296,15 @@ def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_l
     ``[b, h, s_q]`` row logsumexp).
 
     CPU tensors take ``block_sparse_attention_fwd_reference``. CUDA tensors
-    launch the kernel of ``block_sparse_route`` on the current stream (no
-    synchronisation) or raise on what it does not take: dtypes other than
-    fp32/fp16/bf16, head_dim outside ``_KERNEL_HEAD_DIMS`` (the flash
-    kernels' set: 32, 64, 80, 96, 128, 256), a block that is not a multiple
-    of 16, lists on another device, a non-contiguous last dim or rows not
-    16-byte aligned. ``_route`` forces a route, for timing one against the
-    other (``_pick_route``)."""
+    launch the kernel of ``block_sparse_route(..., "fwd")`` on the current
+    stream (no synchronisation) or raise on what it does not take: dtypes
+    other than fp32/fp16/bf16, head_dim outside ``_KERNEL_HEAD_DIMS`` (the
+    flash kernels' set: 32, 64, 80, 96, 128, 256), a block that is not a
+    multiple of 16, lists on another device, a non-contiguous last dim or
+    rows not 16-byte aligned. ``_route`` forces a route, for timing one
+    against the other (``_pick_route``)."""
     _check_shapes(q, k, v, lists, causal)
-    route = _pick_route("block-sparse forward", q, lists.block, _route)
+    route = _pick_route("fwd", q, lists.block, _route)
     if _on_cpu(q, k, v):
         return block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal, scale=scale,
                                                     return_lse=return_lse)
@@ -340,14 +347,14 @@ def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=No
     the upstream gradient ``do``, from the forward's ``lse``.
 
     CPU tensors take ``block_sparse_attention_bwd_reference``. CUDA tensors
-    launch the kernels of ``block_sparse_route`` (wmma: the dQ kernel, which
-    also computes delta = rowsum(o * dO), and the dK/dV kernel; wgmma: a
-    delta pass, the dQ and the dK/dV kernel), counted as one launch, on the
-    current stream, or raise on what they do not take: the forward's
-    restrictions, o/do unlike q, or a missing lse. ``_route`` forces a
-    route, for timing one against the other (``_pick_route``)."""
+    launch the kernels of ``block_sparse_route(..., "bwd")`` (wmma: the dQ
+    kernel, which also computes delta = rowsum(o * dO), and the dK/dV
+    kernel; wgmma: a delta pass, the dQ and the dK/dV kernel), counted as
+    one launch, on the current stream, or raise on what they do not take:
+    the forward's restrictions, o/do unlike q, or a missing lse. ``_route``
+    forces a route, for timing one against the other (``_pick_route``)."""
     _check_shapes(q, k, v, lists, causal)
-    route = _pick_route("block-sparse backward", q, lists.block, _route)
+    route = _pick_route("bwd", q, lists.block, _route)
     if lse is None:
         raise ValueError("block-sparse backward needs the forward's lse "
                          "(block_sparse_attention_fwd(..., return_lse=True))")

@@ -14,11 +14,10 @@ to the bottom right (query i sees key j <= i + s_kv - s_q).
 
 Each source has two routes, fixed by ``attention_route(dtype, head_dim,
 kernel)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64, 80, 96,
-128 and 256 for the forward, 64, 80, 96 and 128 for the backward: the widths
-of every main path; TMA loads through an mbarrier ring, wgmma, the softmax
-and every accumulator in registers, 80 and 96 padded to 128 by TMA's zero
-fill) and ``wmma`` (everything else the kernels take: fp32, 16-bit at
-head_dim 32, and the backward at 256; warp-level wmma or fp32 FMAs through
+128 and 256, the widths of every main path; TMA loads through an mbarrier
+ring, wgmma, the softmax and every accumulator in registers, 80 and 96
+padded to 128 by TMA's zero fill) and ``wmma`` (everything else the kernels
+take: fp32 and 16-bit at head_dim 32; warp-level wmma or fp32 FMAs through
 shared memory). A failed build or launch of either raises; neither falls
 back to the other.
 
@@ -44,10 +43,9 @@ _KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 # the routes: the TMA + wgmma kernels take 16-bit types at these head dims,
-# the forward's and the backward's (whose dK and dV at 256 would not fit the
-# registers)
+# the forward's and the backward's
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
-_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 80, 96, 128)}
+_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 80, 96, 128, 256)}
 _WGMMA_BWD_PAD = 128    # the wgmma backward's lse/delta rows: s_q rounded up to this
 
 

@@ -339,21 +339,17 @@ def test_forward_routes_match_plain(cuda, shape, dtype, d, route):
         assert ((got[1] - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all()
 
 
-@pytest.mark.parametrize("route", ["wgmma", "wmma"])
-@pytest.mark.parametrize("d", [64, 80, 96, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("shape", [s[:6] for s in _ROUTE_SHAPES], ids=_ROUTE_IDS)
-def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
-    """The TMA + wgmma backward (16-bit types at head_dim 64, 80, 96 and
-    128) and the wmma kernels forced at the same shapes: dq, dk, dv within
-    1e-5 + ``bwd_rounding_bound``; a second launch gives bitwise the same
-    gradients (no atomics)."""
+def _check_backward_route(device, shape, dtype, d, route):
+    """The flash backward on ``route`` at ``shape`` (``_ROUTE_SHAPES``
+    without lse): dq, dk, dv within 1e-5 + ``bwd_rounding_bound`` of the
+    plain version, a second launch bitwise the same (no atomics), each
+    launch counted on its route."""
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         attention_route, bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
 
     b, s_q, s_kv, h, kvh, causal = shape
     assert attention_route(dtype, d, "bwd") == "wgmma"
-    args = _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, cuda)
+    args = _bwd_inputs(b, s_q, s_kv, h, kvh, d, causal, dtype, device)
     forced = None if route == "wgmma" else route
     before = dict(LAUNCH_COUNTS)
     grads = flash_attention_bwd(*args, causal=causal, _route=forced)
@@ -369,13 +365,37 @@ def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
         assert torch.equal(g, g2), f"{name}: two launches differ"
         diff = (g.float() - r.float()).abs()
         worst = (diff / (1e-5 + bound)).max().item()
-        assert worst <= 1.0, f"{name}: max abs err {diff.max().item()}, {worst:.2f} of the limit"
+        assert worst <= 1.0, (f"{shape} {dtype} d{d} {route} {name}: max abs err "
+                              f"{diff.max().item()}, {worst:.2f} of the limit")
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("shape", [s[:6] for s in _ROUTE_SHAPES], ids=_ROUTE_IDS)
+def test_backward_routes_match_plain(cuda, shape, dtype, d, route):
+    """The TMA + wgmma backward (16-bit types at head_dim 64, 80, 96 and
+    128) and the wmma kernels forced at the same shapes
+    (``_check_backward_route``)."""
+    _check_backward_route(cuda, shape, dtype, d, route)
+
+
+def test_backward_routes_match_plain_at_256(cuda):
+    """The same at head_dim 256 (32-row kv tiles in the dQ kernel, the dK/dV
+    warpgroups splitting the columns), bf16 and fp16, both routes, every
+    shape of ``_ROUTE_SHAPES`` (ragged, s_q < s_kv, GQA, MQA, non-causal)."""
+    for shape in _ROUTE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float16):
+            for route in ("wgmma", "wmma"):
+                _check_backward_route(cuda, shape[:6], dtype, 256, route)
 
 
 def test_forced_route_refuses_what_it_does_not_take(cuda):
-    """fp32 and head_dim 32 have no wgmma kernel, nor has the backward at
-    head_dim 256: forcing that route raises before any launch."""
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_bwd
+    """fp32 and head_dim 32 have no wgmma kernel: forcing that route raises
+    before any launch. The backward at head_dim 256 has one: forced, it
+    launches on wgmma and forced onto wmma on wmma, both within the bound."""
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
 
     before = dict(LAUNCH_COUNTS)
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32)):
@@ -384,33 +404,49 @@ def test_forced_route_refuses_what_it_does_not_take(cuda):
             flash_attention_fwd(q, k, v, _route="wgmma")
         with pytest.raises(ValueError, match="route"):
             flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
-    q, k, v, o, lse, do = _bwd_inputs(1, 64, 64, 2, 2, 256, True, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="route"):
-        flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
     assert dict(LAUNCH_COUNTS) == before
+    args = _bwd_inputs(1, 64, 64, 2, 2, 256, True, torch.bfloat16, cuda)
+    refs = flash_attention_bwd_reference(*args)
+    bounds = bwd_rounding_bound(*args, refs)
+    for route in ("wgmma", "wmma"):
+        before = dict(LAUNCH_COUNTS)
+        grads = flash_attention_bwd(*args, _route=route)
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        assert (LAUNCH_COUNTS["flash_attention_bwd_wgmma"]
+                == before["flash_attention_bwd_wgmma"] + (route == "wgmma"))
+        for g, r, bound in zip(grads, refs, bounds):
+            assert ((g.float() - r.float()).abs() <= 1e-5 + bound).all(), route
 
 
-@pytest.mark.parametrize("d", [80, 96])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-def test_padded_columns_never_reach_an_output(cuda, dtype, d):
+def test_padded_columns_never_reach_an_output(cuda):
     """At head_dim 80 and 96 the wgmma kernels read 128 columns a row, the
     columns past d zero-filled by TMA. q, k, v, o and dO here are views of
-    the first d columns of 128-wide buffers whose other columns hold NaN:
-    the forward (with lse) and the backward must match the plain versions
-    on the same views, every output finite, on the wgmma route."""
+    the first d columns of wider buffers (128 columns; 384 at head_dim 256,
+    whose tiles are whole panels) whose other columns hold NaN: the forward
+    (with lse) and the backward must match the plain versions on the same
+    views, every output finite, on the wgmma route; bf16 and fp16."""
+    for d in (80, 96, 256):
+        for dtype in (torch.bfloat16, torch.float16):
+            _check_padded_columns(cuda, dtype, d)
+
+
+def _check_padded_columns(cuda, dtype, d):
+    """``test_padded_columns_never_reach_an_output`` at one dtype and d."""
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         bwd_rounding_bound, flash_attention_bwd, flash_attention_bwd_reference)
 
     b, s_q, s_kv, h, kvh = 1, 200, 333, 4, 2
+    width = 128 if d < 128 else 384
 
     def view(t):
-        wide = torch.full(t.shape[:3] + (128,), float("nan"), dtype=dtype, device=cuda)
+        wide = torch.full(t.shape[:3] + (width,), float("nan"), dtype=dtype, device=cuda)
         wide[..., :d] = t
         return wide[..., :d]
 
     q, k, v, o, lse, do = _bwd_inputs(b, s_q, s_kv, h, kvh, d, True, dtype, cuda)
     q, k, v, o, do = (view(t) for t in (q, k, v, o, do))
-    assert q.stride(2) == 128 and not q.is_contiguous()
+    assert q.stride(2) == width and not q.is_contiguous()
     before = dict(LAUNCH_COUNTS)
     out, out_lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
@@ -1117,7 +1153,7 @@ def test_block_sparse_bwd_routes_match_plain(cuda, pattern, block, mode, dtype, 
     s_kv = 8 * block
     s_q = s_kv - block if mode == "causal-sq<skv" else s_kv
     lists, q, k, v, do = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, cuda)
-    assert block_sparse_route(dtype, d, block) == "wgmma"
+    assert block_sparse_route(dtype, d, block, "bwd") == "wgmma"
     o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal, return_lse=True)
     o = o.to(dtype)
     refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=causal)
@@ -1239,17 +1275,33 @@ def test_block_sparse_wgmma_bwd_under_autograd(cuda, monkeypatch):
 
 
 def test_block_sparse_forced_route_refuses_what_it_does_not_take(cuda):
+    """A forced wgmma route raises where the kernel has none: blocks of 64,
+    fp32, and the backward at head_dim 80, 96 and 256 (the forward takes
+    those widths at block 128, forced or not)."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         block_sparse_attention_bwd, block_sparse_attention_fwd)
 
     for block, dtype, d in ((64, torch.bfloat16, 64), (128, torch.float32, 64),
-                            (128, torch.bfloat16, 80)):
+                            (64, torch.bfloat16, 80), (64, torch.float16, 96),
+                            (64, torch.bfloat16, 256)):
         lists, q, k, v, do = _sparse_case("fixed", block, True, 512, 512, 1, 2, d, dtype, cuda)
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_fwd(q, k, v, lists, causal=True, _route="wgmma")
+    for d in (80, 96, 256):
+        lists, q, k, v, do = _sparse_case("fixed", 128, True, 512, 512, 1, 2, d, torch.bfloat16,
+                                          cuda)
+        before = dict(LAUNCH_COUNTS)
+        o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
+                                            _route="wgmma")
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == (
+            before["block_sparse_attention_fwd_wgmma"] + 1)
+        _assert_sparse_fwd_matches_plain(o, lse, q, k, v, lists, True, f"forced d{d}")
+        with pytest.raises(ValueError, match="route"):
+            block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
 
 
 # -- the block-sparse forward's two routes -------------------------------------------
@@ -1271,26 +1323,19 @@ def _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, causal, what):
         assert ((lse - ref_lse).abs() <= 1e-5 + 1e-5 * ref_lse.abs()).all(), what
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("mode", ["causal", "causal-sq<skv", "noncausal"])
-@pytest.mark.parametrize("block", [128, 256])
-@pytest.mark.parametrize("pattern", _SPARSE_PATTERNS)
-def test_block_sparse_fwd_routes_match_plain(cuda, pattern, block, mode, dtype, d):
-    """Both routes of the block-sparse forward against the plain version for
-    every pattern at blocks 128 and 256, causal (s_q = s_kv and s_q < s_kv)
-    and not, with and without lse: o within 1e-5 + ``rounding_bound``, lse
-    within 1e-5 + 1e-5 |lse|, the output without lse bitwise that with it.
-    The wgmma route is the one ``block_sparse_route`` picks; each launch
-    counts on its route."""
+def _check_block_sparse_fwd_routes(device, pattern, block, mode, dtype, d):
+    """Both routes of the block-sparse forward against the plain version:
+    o within 1e-5 + ``rounding_bound``, lse within 1e-5 + 1e-5 |lse|, the
+    output without lse bitwise that with it; the wgmma route is the one
+    ``block_sparse_route`` picks, and each launch counts on its route."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (block_sparse_attention_fwd,
                                                                      block_sparse_route)
 
     causal = mode != "noncausal"
     s_kv = 8 * block
     s_q = s_kv - block if mode == "causal-sq<skv" else s_kv
-    lists, q, k, v, _ = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, cuda)
-    assert block_sparse_route(dtype, d, block) == "wgmma"
+    lists, q, k, v, _ = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, device)
+    assert block_sparse_route(dtype, d, block, "fwd") == "wgmma"
     for route in ("wgmma", "wmma"):
         forced = None if route == "wgmma" else route
         before = dict(LAUNCH_COUNTS)
@@ -1303,13 +1348,38 @@ def test_block_sparse_fwd_routes_match_plain(cuda, pattern, block, mode, dtype, 
         assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == (
             before["block_sparse_attention_fwd_wgmma"] + 2 * (route == "wgmma"))
         assert torch.equal(out, bare), route
-        _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, causal, route)
+        _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, causal,
+                                         f"{pattern} {block} {mode} {dtype} d{d} {route}")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("mode", ["causal", "causal-sq<skv", "noncausal"])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("pattern", _SPARSE_PATTERNS)
+def test_block_sparse_fwd_routes_match_plain(cuda, pattern, block, mode, dtype, d):
+    """Both routes of the block-sparse forward against the plain version for
+    every pattern at blocks 128 and 256, causal (s_q = s_kv and s_q < s_kv)
+    and not, with and without lse (``_check_block_sparse_fwd_routes``)."""
+    _check_block_sparse_fwd_routes(cuda, pattern, block, mode, dtype, d)
+
+
+def test_block_sparse_fwd_routes_match_plain_at_the_preset_widths(cuda):
+    """The same at head_dim 80 and 96 (two panels, the second zero-filled)
+    and 256 (64-row kv tiles, two a 128-token block): every pattern, blocks
+    128 and 256, causal and not, bf16 and fp16."""
+    for d in (80, 96, 256):
+        for pattern in _SPARSE_PATTERNS:
+            for block in (128, 256):
+                for mode in ("causal", "causal-sq<skv", "noncausal"):
+                    for dtype in (torch.bfloat16, torch.float16):
+                        _check_block_sparse_fwd_routes(cuda, pattern, block, mode, dtype, d)
 
 
 def test_block_sparse_wgmma_fwd_writes_empty_rows_as_the_plain_version(cuda):
     """A non-causal 128-token layout in which q block 2 attends nothing: its
     rows come back o = 0 and lse = -1e30 (the plain version's), the rest
-    within the bound, in bf16 and fp16 at d 64 and 128."""
+    within the bound, in bf16 and fp16 at every wgmma width."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (SparseLayout,
                                                                      block_sparse_attention_fwd)
 
@@ -1319,7 +1389,7 @@ def test_block_sparse_wgmma_fwd_writes_empty_rows_as_the_plain_version(cuda):
     layout[2, :] = False
     lists = SparseLayout(layout, 128, cuda)
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128):
+        for d in (64, 80, 96, 128, 256):
             q, k, v = _qkv(2, 512, 512, 2, 2, d, dtype, cuda)
             before = LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"]
             out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=False, return_lse=True)

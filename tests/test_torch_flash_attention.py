@@ -159,16 +159,14 @@ def test_every_preset_head_dim_is_a_kernel_width():
 
 def test_attention_route_is_fixed_by_dtype_and_head_dim():
     """bf16 and fp16 at head_dim 64, 80, 96, 128 and 256 take the TMA +
-    wgmma forward, and at 64, 80, 96 and 128 the TMA + wgmma backward; the
-    backward at 256, head_dim 32 and fp32 take the wmma kernels; what no
-    kernel takes has no route, and a kernel other than the two raises."""
+    wgmma forward and backward; head_dim 32 and fp32 take the wmma kernels;
+    what no kernel takes has no route, and a kernel other than the two
+    raises."""
     route = cuda_flash.attention_route
     for dtype in (torch.bfloat16, torch.float16):
         for d in (64, 80, 96, 128, 256):
             assert route(dtype, d, "fwd") == "wgmma"
-        for d in (64, 80, 96, 128):
             assert route(dtype, d, "bwd") == "wgmma"
-        assert route(dtype, 256, "bwd") == "wmma"
         for kernel in ("fwd", "bwd"):
             assert route(dtype, 32, kernel) == "wmma"
     for kernel in ("fwd", "bwd"):

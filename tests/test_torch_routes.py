@@ -70,41 +70,49 @@ def test_ce_route_is_fixed_by_dtype_and_width():
 
 
 def test_block_sparse_route_is_fixed_by_dtype_width_and_block():
-    """bf16 and fp16 at head_dim 64 and 128 with blocks 128 and 256 take the
-    TMA + wgmma backward; fp32, the other head dims and the smaller or
-    unaligned blocks the wmma kernels; what no kernel takes has no route."""
-    for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128):
-            for block in (128, 256, 384):
-                assert block_sparse_route(dtype, d, block) == "wgmma"
-            for block in (16, 32, 48, 64, 192):
-                assert block_sparse_route(dtype, d, block) == "wmma"
-        for d in (32, 80, 96, 256):
-            assert block_sparse_route(dtype, d, 128) == "wmma"
-    for d in (32, 64, 80, 96, 128, 256):
-        for block in (16, 128, 256):
-            assert block_sparse_route(torch.float32, d, block) == "wmma"
-    assert block_sparse_route(torch.bfloat16, 48, 128) is None
-    assert block_sparse_route(torch.bfloat16, 64, 24) is None
-    assert block_sparse_route(torch.float64, 64, 128) is None
+    """bf16 and fp16 with blocks 128, 256 and 384 take the TMA + wgmma
+    forward at head_dim 64, 80, 96, 128 and 256 and the wgmma backward at 64
+    and 128; fp32, the other head dims and the smaller or unaligned blocks
+    the wmma kernels; what no kernel takes has no route, and a kernel that
+    is neither "fwd" nor "bwd" raises."""
+    wgmma = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 128)}
+    for kernel, dims in wgmma.items():
+        for dtype in (torch.bfloat16, torch.float16):
+            for d in dims:
+                for block in (128, 256, 384):
+                    assert block_sparse_route(dtype, d, block, kernel) == "wgmma"
+                for block in (16, 32, 48, 64, 192):
+                    assert block_sparse_route(dtype, d, block, kernel) == "wmma"
+            for d in sorted({32, 64, 80, 96, 128, 256} - set(dims)):
+                assert block_sparse_route(dtype, d, 128, kernel) == "wmma", (kernel, d)
+        for d in (32, 64, 80, 96, 128, 256):
+            for block in (16, 128, 256):
+                assert block_sparse_route(torch.float32, d, block, kernel) == "wmma"
+        assert block_sparse_route(torch.bfloat16, 48, 128, kernel) is None
+        assert block_sparse_route(torch.bfloat16, 64, 24, kernel) is None
+        assert block_sparse_route(torch.float64, 64, 128, kernel) is None
+    with pytest.raises(ValueError, match="kernel"):
+        block_sparse_route(torch.bfloat16, 64, 128, "dq")
 
 
 def test_every_preset_has_a_route_for_both_kernels():
     """Every preset of the registry maps to some CE route and some
-    block-sparse backward route (at the JAX package's default 128-token
-    block) in each kernel dtype, and the training paths' GPT-2 medium in
-    bf16 to wgmma for both."""
+    block-sparse forward and backward route (at the JAX package's default
+    128-token block) in each kernel dtype, and the training paths' GPT-2
+    medium in bf16 to wgmma for all three."""
     cfgs = _registry_configs()
     assert ("gpt2", "medium") in cfgs and ("llama", "7b") in cfgs
     for dtype in DTYPES:
         no_ce = {k: c.d_model for k, c in cfgs.items() if ce_route(dtype, c.d_model) is None}
         assert not no_ce, f"{dtype}: no CE route for {no_ce}"
-        no_bs = {k: c.head_dim for k, c in cfgs.items()
-                 if block_sparse_route(dtype, c.head_dim, 128) is None}
-        assert not no_bs, f"{dtype}: no block-sparse route for {no_bs}"
+        for kernel in ("fwd", "bwd"):
+            no_bs = {k: c.head_dim for k, c in cfgs.items()
+                     if block_sparse_route(dtype, c.head_dim, 128, kernel) is None}
+            assert not no_bs, f"{dtype}: no block-sparse {kernel} route for {no_bs}"
     medium = cfgs[("gpt2", "medium")]
     assert ce_route(torch.bfloat16, medium.d_model) == "wgmma"
-    assert block_sparse_route(torch.bfloat16, medium.head_dim, 128) == "wgmma"
+    for kernel in ("fwd", "bwd"):
+        assert block_sparse_route(torch.bfloat16, medium.head_dim, 128, kernel) == "wgmma"
     # every preset's width is a multiple of 64: all of them take the wgmma CE
     assert all(ce_route(torch.bfloat16, c.d_model) == "wgmma" for c in cfgs.values())
 
@@ -188,9 +196,10 @@ def test_forced_route_the_shape_cannot_take_raises():
     assert dict(LAUNCH_COUNTS) == before
 
 
-def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128):
+def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128, kv_tile=128):
     """A mirror of ``ListQ`` (csrc/sm90_utils.cuh), the wgmma forward's
-    ``ListFwd``: for every grid row (the q tiles of the q blocks in
+    ``ListFwd`` (``tile``-row q tiles, ``kv_tile``-row kv tiles: 64 at
+    head_dim 256): for every grid row (the q tiles of the q blocks in
     ``q_order``), the first keys of the kv tiles its producer loads and its
     consumers mask, in order."""
     block = lists.block
@@ -204,8 +213,8 @@ def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128):
 
         def reach(k):
             if not causal:
-                return block // tile
-            return 0 if lim < k else min(block // tile, (lim - k) // tile + 1)
+                return block // kv_tile
+            return 0 if lim < k else min(block // kv_tile, (lim - k) // kv_tile + 1)
 
         n = sum(reach(idx[qb][i] * block) for i in range(cnt[qb]))
         keys, i, sub, k0, n_sub = [], 0, 0, 0, 0
@@ -214,26 +223,28 @@ def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128):
                 k0 = idx[qb][i] * block
                 i += 1
                 n_sub, sub = reach(k0), 0
-            keys.append(k0 + tile * sub)
+            keys.append(k0 + kv_tile * sub)
             sub += 1
         walks[q0] = keys
     return walks
 
 
 @pytest.mark.parametrize("case", [
-    ("fixed", 128, True, 1024, 1024, {"num_local_blocks": 4, "num_global_blocks": 1}),
-    ("bigbird", 256, False, 2048, 2048, {}),
-    ("fixed", 128, True, 768, 1024, {}),
-], ids=["training-layout", "bigbird-256-noncausal", "causal-sq<skv"])
+    ("fixed", 128, True, 1024, 1024, {"num_local_blocks": 4, "num_global_blocks": 1}, 128),
+    ("bigbird", 256, False, 2048, 2048, {}, 128),
+    ("fixed", 128, True, 768, 1024, {}, 128),
+    ("fixed", 128, True, 2048, 2048, {"num_local_blocks": 4, "num_global_blocks": 1}, 64),
+], ids=["training-layout", "bigbird-256-noncausal", "causal-sq<skv", "d256-training-layout"])
 def test_list_fwd_walk_is_the_plain_versions_visible_tiles(case):
     """The wgmma forward's tile walk over a layout's lists visits, for every
-    128-row q tile, exactly the 128-row kv tiles in which the plain version's
-    ``_visible`` keeps some (query, key) element, ascending, each once; every
-    q tile of the grid once (the grid in heavy-first order)."""
-    pattern, block, causal, s_q, s_kv, kw = case
+    128-row q tile, exactly the kv tiles (128 rows; 64 at head_dim 256, two
+    a 128-token block) in which the plain version's ``_visible`` keeps some
+    (query, key) element, ascending, each once; every q tile of the grid
+    once (the grid in heavy-first order)."""
+    pattern, block, causal, s_q, s_kv, kw, kv_tile = case
     lists = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kw), s_q, s_kv,
                                     causal=causal).lists
-    walks = _list_fwd_walk(lists, s_q, s_kv, causal)
+    walks = _list_fwd_walk(lists, s_q, s_kv, causal, kv_tile=kv_tile)
     assert sorted(walks) == list(range(0, s_q, 128))
     want = {q0: set() for q0 in walks}
     for a in range(lists.max_a):
@@ -241,13 +252,19 @@ def test_list_fwd_walk_is_the_plain_versions_visible_tiles(case):
         ok = ok.expand(-1, block, block)   # [n, 1, 1] where nothing is masked
         for qb in range(ok.shape[0]):
             for r in range(block // 128):
-                for c in range(block // 128):
-                    if ok[qb, 128 * r:128 * (r + 1), 128 * c:128 * (c + 1)].any():
-                        want[qb * block + 128 * r].add(int(kb[qb]) * block + 128 * c)
+                for c in range(block // kv_tile):
+                    cols = slice(kv_tile * c, kv_tile * (c + 1))
+                    if ok[qb, 128 * r:128 * (r + 1), cols].any():
+                        want[qb * block + 128 * r].add(int(kb[qb]) * block + kv_tile * c)
     for q0, keys in walks.items():
         assert keys == sorted(want[q0]), q0
-    if pattern == "fixed" and s_q == s_kv:
+    if pattern == "fixed" and s_q == s_kv == 1024:
         assert sum(len(k) for k in walks.values()) == 24   # the kept blocks of phase 8's layout
+    if pattern == "fixed" and s_q == s_kv == 2048:
+        # phase 10's GPT-J layout keeps 64 blocks, each two 64-row kv tiles
+        # (a diagonal block's too: the q tile's last row sees both)
+        assert int(lists.fwd_cnt.sum()) == 64
+        assert sum(len(k) for k in walks.values()) == 2 * 64
 
 
 def test_block_sparse_forward_takes_the_backwards_route():
@@ -293,27 +310,42 @@ def _padded(d):
 
 def test_width_presets_take_the_wgmma_flash_kernels():
     """The registry's OPT-2.7B (head_dim 80), GPT-NeoX-20B (96) and GPT-J-6B
-    (256) take the TMA + wgmma flash forward in bf16 and fp16; OPT-2.7B and
-    GPT-NeoX-20B the wgmma backward too, GPT-J-6B the wmma backward; the
-    block-sparse kernels keep the wmma route at these widths at every block."""
+    (256) take the TMA + wgmma flash forward and backward in bf16 and fp16;
+    the block-sparse forward takes the wgmma route at these widths with
+    blocks 128 and 256 and the wmma route with blocks 16, 32 and 64; the
+    block-sparse backward keeps the wmma route at every block."""
     cfgs = _registry_configs()
-    want_bwd = {("opt", "2.7b"): "wgmma", ("gpt_neox", "20b"): "wgmma", ("gptj", "6b"): "wmma"}
-    for key, bwd in want_bwd.items():
+    for key in (("opt", "2.7b"), ("gpt_neox", "20b"), ("gptj", "6b")):
         d = cfgs[key].head_dim
         assert d in (80, 96, 256), key
         for dtype in (torch.bfloat16, torch.float16):
             assert attention_route(dtype, d, "fwd") == "wgmma", key
-            assert attention_route(dtype, d, "bwd") == bwd, key
+            assert attention_route(dtype, d, "bwd") == "wgmma", key
             for block in (16, 32, 64, 128, 256):
-                assert block_sparse_route(dtype, d, block) == "wmma", (key, block)
+                want = "wgmma" if block >= 128 else "wmma"
+                assert block_sparse_route(dtype, d, block, "fwd") == want, (key, block)
+                assert block_sparse_route(dtype, d, block, "bwd") == "wmma", (key, block)
         assert attention_route(torch.float32, d, "fwd") == "wmma"
+        assert attention_route(torch.float32, d, "bwd") == "wmma"
+
+
+def _bwd_tiles(d):
+    """The backward's tiles per head_dim (csrc/flash_bwd_sm90.cuh): the dQ
+    kernel's kv tile (64 rows, 32 at 256), the dK/dV kernel's kv tile (128
+    rows, a warpgroup's 64 each; 64 at 256, the warpgroups splitting its
+    columns) and q tile (64 rows at head_dim 64, else 32)."""
+    wide = d > 128
+    return (32 if wide else 64), (64 if wide else 128), (64 if d == 64 else 32)
 
 
 def test_wgmma_flash_tiles_fit_shared_memory():
     """The forward's q tile, K ring and V ring (2 stages each) of padded
     width fit the 227 KB a block may have at every wgmma head_dim (head_dim
     256 only with 64-row kv tiles), as do the backward's dQ tiles (Q, dO and
-    a 3-stage K/V ring) at every wgmma backward head_dim."""
+    a 3-stage K/V ring; at 256 only with 32-row kv tiles) and its dK/dV
+    tiles (K, V, a 3-stage ring of Q, dO, lse2 and delta; at 256 also the
+    warpgroups' two exchange buffers of S^T / dP^T a q tile parity) at every
+    wgmma backward head_dim, as DqCfg and DkvCfg count them."""
     limit = 232448
     for d in (64, 80, 96, 128, 256):
         dp, bkv = _padded(d), _fwd_kv_tile(d)
@@ -322,9 +354,21 @@ def test_wgmma_flash_tiles_fit_shared_memory():
         assert fwd <= limit, d
         if d == 256:
             assert 128 * dp * 2 + 4 * 128 * dp * 2 > limit   # why its kv tile is 64 rows
-    for d in (64, 80, 96, 128):
+    for d in (64, 80, 96, 128, 256):
         dp = _padded(d)
-        assert 2 * 128 * dp * 2 + 3 * 2 * 64 * dp * 2 + 8 * 7 + 1024 <= limit, d
+        dq_kv, dkv_kv, dkv_q = _bwd_tiles(d)
+        dq = 2 * 128 * dp * 2 + 3 * 2 * dq_kv * dp * 2 + 8 * 7 + 1024
+        stage = -(-(2 * dkv_q * dp * 2 + 2 * dkv_q * 4) // 1024) * 1024
+        exchange = 2 * 2 * 64 * dkv_q * 4 if d > 128 else 0
+        dkv = 2 * dkv_kv * dp * 2 + 3 * stage + exchange + 8 * 7 + 1024
+        assert dq <= limit and dkv <= limit, d
+        if d == 256:
+            assert (dq, dkv) == (230456, 200760)
+            # why: 64-row K/V tiles overflow the dQ ring; dK and dV of 64 kv
+            # rows in one warpgroup would be 2 x 64 x 256 fp32 over 128
+            # threads, past the 240 registers a consumer thread has
+            assert 2 * 128 * dp * 2 + 3 * 2 * 64 * dp * 2 > limit
+            assert 2 * 64 * dp // 128 > 240
 
 
 def _dense_fwd_walk(s_q, s_kv, causal, bkv, bq=128):
@@ -341,6 +385,19 @@ def _dense_fwd_walk(s_q, s_kv, causal, bkv, bq=128):
     return walks
 
 
+def _dense_dkv_walk(s_q, s_kv, causal, bq, bkv):
+    """A mirror of ``DenseDkv`` (csrc/flash_bwd_sm90.cuh) for one query head
+    of the group: for every grid row, its kv tile's first row and the first
+    rows of the q tiles it walks."""
+    walks = {}
+    for y in range(-(-s_kv // bkv)):
+        kv0 = y * bkv
+        q_start = max(0, kv0 - (s_kv - s_q)) // bq * bq if causal else 0
+        n_q = -(-(s_q - q_start) // bq) if q_start < s_q else 0
+        walks[kv0] = [q_start + bq * t for t in range(n_q)]
+    return walks
+
+
 @pytest.mark.parametrize("d", [80, 96, 128, 256])
 @pytest.mark.parametrize("case", [(True, 2048, 2048), (True, 1000, 1000), (True, 200, 777),
                                   (False, 300, 500)],
@@ -350,7 +407,12 @@ def test_dense_fwd_walk_is_the_plain_versions_visible_tiles(d, case):
     """The wgmma forward's walk over the dense range visits, for every q
     tile, exactly the kv tiles (128 rows; 64 at head_dim 256) in which the
     plain version's mask keeps some (query, key) element, ascending, each
-    once; every q tile of the grid once, the last first."""
+    once; every q tile of the grid once, the last first. The backward's
+    walks at the same width too: each dK/dV block (``DenseDkv``: a 128-row
+    kv tile; 64 rows at head_dim 256) visits exactly the q tiles (32 rows)
+    in which the mask keeps some element of its kv tile, and each dQ block
+    (``DenseDq``: the forward's walk with 64-row kv tiles, 32 at 256)
+    exactly the kv tiles its rows see."""
     causal, s_q, s_kv = case
     bkv = _fwd_kv_tile(d)
     walks = _dense_fwd_walk(s_q, s_kv, causal, bkv)
@@ -362,13 +424,23 @@ def test_dense_fwd_walk_is_the_plain_versions_visible_tiles(d, case):
         block = seen[q0:q0 + 128]
         want = [k0 for k0 in range(0, s_kv, bkv) if block[:, k0:k0 + bkv].any()]
         assert keys == want, q0
+    dq_kv, dkv_kv, dkv_q = _bwd_tiles(d)
+    dkv_walks = _dense_dkv_walk(s_q, s_kv, causal, dkv_q, dkv_kv)
+    assert list(dkv_walks) == list(range(0, s_kv, dkv_kv))
+    for kv0, q_rows in dkv_walks.items():
+        tile = seen[:, kv0:kv0 + dkv_kv]
+        assert q_rows == [q for q in range(0, s_q, dkv_q) if tile[q:q + dkv_q].any()], kv0
+    for q0, keys in _dense_fwd_walk(s_q, s_kv, causal, dq_kv).items():
+        tile = seen[q0:q0 + 128]
+        assert keys == [k0 for k0 in range(0, s_kv, dq_kv) if tile[:, k0:k0 + dq_kv].any()], q0
 
 
 def test_flash_forced_wgmma_backward_at_256_raises():
-    """The backward at head_dim 256 has no wgmma kernel: forcing that route
-    raises, on CPU tensors too, while the forced wmma route and the forward
-    forced onto wgmma at 256 still give the plain versions on CPU tensors,
-    launching nothing."""
+    """The backward at head_dim 32 has no wgmma kernel: forcing that route
+    raises, on CPU tensors too. At 256 it has one (since the d 256 dK/dV
+    kernel split its columns between the warpgroups): the forced wgmma and
+    wmma routes, and the forward forced onto wgmma, give the plain versions
+    on CPU tensors, launching nothing; as at 80 and 96."""
     r = np.random.RandomState(1)
     q, k, v, do = (torch.tensor(r.randn(1, 64, 2, 256), dtype=torch.bfloat16)
                    for _ in range(4))
@@ -377,11 +449,14 @@ def test_flash_forced_wgmma_backward_at_256_raises():
     want_o, want_lse = flash_attention_reference(q, k, v, return_lse=True)
     torch.testing.assert_close(o, want_o, rtol=0, atol=0)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+    args32 = [t[..., :32] for t in (q, k, v)]
+    o32, lse32 = flash_attention_reference(*args32, return_lse=True)
     with pytest.raises(ValueError, match="route"):
-        flash_attention_bwd(q, k, v, o, lse, do, _route="wgmma")
-    got = flash_attention_bwd(q, k, v, o, lse, do, _route="wmma")
-    for g, w in zip(got, flash_attention_bwd_reference(q, k, v, o, lse, do)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        flash_attention_bwd(*args32, o32, lse32, do[..., :32], _route="wgmma")
+    for route in ("wgmma", "wmma"):
+        got = flash_attention_bwd(q, k, v, o, lse, do, _route=route)
+        for g, w in zip(got, flash_attention_bwd_reference(q, k, v, o, lse, do)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
     for d in (80, 96):   # the backward's wgmma route takes these widths
         args = [t[..., :d] for t in (q, k, v)]
         o_d, lse_d = flash_attention_reference(*args, return_lse=True)

@@ -24,15 +24,18 @@ request (each the mean of its two runs) and CHANGE less BASE.
 
 ``--widths`` runs the head dims 80 and 256 on their bf16 paths in the same
 turns: full GPT-J-6B (28 layers, 16 heads of 256) ``generate()`` over
-``chip_smoke.py`` phase 10's requests, cold and warm, and full OPT-2.7B (32
-heads of 80) ``train_batch()`` at phase 10's batch and sequence, 2 warm-up
-and 8 timed steps. The shapes and configs are this checkout's
-``chip_smoke.py`` constants (``WIDTH_PATH_*``, ``WIDTH_TRAIN_*``), loaded by
-path; the loops are this file's own, so a root whose ``chip_smoke.py`` has
-no phase 10 runs too. Each run builds the flash and CE kernels of its root.
-Prints one JSON line per run, then a summary: each root's warm prefill ms
-per request, median step ms and launches by route (means of two runs) and
-CHANGE less BASE.
+``chip_smoke.py`` phase 10's requests, cold and warm, full OPT-2.7B (32
+heads of 80) ``train_batch()`` at phase 10's batch and sequence, and
+GPT-J-6B at full width cut to phase 10's depth ``train_batch()`` with flash
+and with block-sparse attention (phase 8's pattern), each 2 warm-up and 8
+timed steps. The shapes and configs are this checkout's ``chip_smoke.py``
+constants (``WIDTH_PATH_*``, ``WIDTH_TRAIN_*``, ``GPTJ_TRAIN_*``,
+``SPARSE_ATTENTION``), loaded by path; the loops are this file's own, so a
+root whose ``chip_smoke.py`` has no phase 10 runs too. Each run builds the
+flash, CE and block-sparse kernels of its root. Prints one JSON line per
+run, then a summary: each root's warm prefill ms per request, median step
+ms of each training step, their launches by route and peaks (means of two
+runs) and CHANGE less BASE.
 
 Needs one CUDA card and nvcc; fails without them.
 """
@@ -140,10 +143,48 @@ def own_chip_smoke():
     return module
 
 
+ATTENTION_LAUNCHES = ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_bwd",
+                      "flash_attention_bwd_wgmma", "block_sparse_attention_fwd",
+                      "block_sparse_attention_fwd_wgmma", "block_sparse_attention_bwd",
+                      "block_sparse_attention_bwd_wgmma")
+
+
+def train_steps(torch, cs, cfg, n_batch, seq, config):
+    """``train_batch()`` of a fresh engine on ``cfg``: TRAIN_WARMUP + TRAIN_STEPS
+    steps on one batch from seed 0; the step ms (host clock, ended by the
+    loss's host read), their median over the timed steps, the attention
+    kernels' launches by route and the peak GiB."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=dict(config))
+    batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size, (n_batch, seq))}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms = []
+    for _ in range(cs.TRAIN_WARMUP + cs.TRAIN_STEPS):
+        t = time.perf_counter()
+        float(engine.train_batch(batch=batch))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {k: LAUNCH_COUNTS[k] for k in ATTENTION_LAUNCHES}
+    timed = sorted(step_ms[cs.TRAIN_WARMUP:])
+    median = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    engine.destroy()
+    del engine
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_ms_median": median, "launches": launches,
+            "peak_gib": peak}
+
+
 def widths_measure(root):
     """One ``--widths`` run in ``root``: GPT-J-6B bf16 ``generate()`` (warm
-    prefill ms per request from ``last_timing``) and OPT-2.7B bf16
-    ``train_batch()`` (median step ms), with the flash launches by route."""
+    prefill ms per request from ``last_timing``), OPT-2.7B bf16
+    ``train_batch()`` and GPT-J-6B's two training steps (``train_steps``),
+    with the attention launches by route."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -159,11 +200,9 @@ def widths_measure(root):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     builders = [ALL_OPS[n]() for n in ("flash_attention_fwd", "flash_attention_bwd",
-                                       "fused_ce_forward")]
+                                       "fused_ce_forward", "block_sparse_attention")]
     for b, started in [(b, b.start()) for b in builders]:
         b.finish(started)
-    flash = ("flash_attention_fwd", "flash_attention_fwd_wgmma", "flash_attention_bwd",
-             "flash_attention_bwd_wgmma")
 
     cfg = gptj_config("6b")
     eng = deepspeed_tpu_torch.init_inference(CausalLM(cfg), dict(cs.WIDTH_PATH_CONFIG))
@@ -176,33 +215,26 @@ def widths_measure(root):
             eng.generate(ids, max_new_tokens=cs.WIDTH_PATH_NEW, greedy=True)
             torch.cuda.synchronize()
             prefill[f"{name}/{attempt}"] = eng.last_timing.seconds()["prefill"] * 1e3
-    generate_launches = {k: LAUNCH_COUNTS[k] for k in flash}
+    generate_launches = {k: LAUNCH_COUNTS[k] for k in ATTENTION_LAUNCHES}
     eng.destroy()
     del eng
     torch.cuda.empty_cache()
 
     tcfg = opt_config("2.7b", attention_impl="flash", remat=False, fused_ce=True,
                       fused_ce_impl="pallas")
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=CausalLM(tcfg),
-                                                     config=dict(cs.WIDTH_TRAIN_CONFIG))
-    batch = {"input_ids": np.random.RandomState(0).randint(
-        0, tcfg.vocab_size, (cs.WIDTH_TRAIN_BATCH, cs.WIDTH_TRAIN_SEQ))}
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    step_ms = []
-    for _ in range(cs.TRAIN_WARMUP + cs.TRAIN_STEPS):
-        t = time.perf_counter()
-        float(engine.train_batch(batch=batch))
-        step_ms.append((time.perf_counter() - t) * 1e3)
-    train_launches = {k: LAUNCH_COUNTS[k] for k in flash}
-    timed = sorted(step_ms[cs.TRAIN_WARMUP:])
-    median = (timed[(len(timed) - 1) // 2] + timed[len(timed) // 2]) / 2
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    engine.destroy()
+    opt = train_steps(torch, cs, tcfg, cs.WIDTH_TRAIN_BATCH, cs.WIDTH_TRAIN_SEQ,
+                      cs.WIDTH_TRAIN_CONFIG)
+    gptj = {}
+    for name, attention in (("flash", {"attention_impl": "flash"}),
+                            ("block_sparse", cs.SPARSE_ATTENTION)):
+        jcfg = gptj_config("6b", n_layers=cs.GPTJ_TRAIN_LAYERS, remat=False, fused_ce=True,
+                           fused_ce_impl="pallas", **attention)
+        gptj[name] = train_steps(torch, cs, jcfg, cs.GPTJ_TRAIN_BATCH, cs.GPTJ_TRAIN_SEQ,
+                                 cs.GPTJ_TRAIN_CONFIG)
     return {"root": root, "card": torch.cuda.get_device_name(0), "gptj_prefill_ms": prefill,
-            "gptj_generate_launches": generate_launches, "opt_step_ms": step_ms,
-            "opt_step_ms_median": median, "opt_train_launches": train_launches,
-            "opt_peak_gib": peak}
+            "gptj_generate_launches": generate_launches, "opt_step_ms": opt["step_ms"],
+            "opt_step_ms_median": opt["step_ms_median"], "opt_train_launches": opt["launches"],
+            "opt_peak_gib": opt["peak_gib"], "gptj_train": gptj}
 
 
 def widths_ab(base, change, smi):
@@ -225,8 +257,17 @@ def widths_ab(base, change, smi):
         return sum(vals) / len(vals)
 
     summary = {"card": smi, "order": [r["label"] for r in runs]}
+    steps = ("flash", "block_sparse")
     for label in ("base", "change"):
         summary[label] = {
+            "gptj_train": {step: {
+                "step_ms_median": mean(
+                    label, lambda r, s=step: r["gptj_train"][s]["step_ms_median"]),
+                "step_ms_medians": [r["gptj_train"][step]["step_ms_median"] for r in runs
+                                    if r["label"] == label],
+                "peak_gib": mean(label, lambda r, s=step: r["gptj_train"][s]["peak_gib"]),
+                "launches": next(r["gptj_train"][step]["launches"] for r in runs
+                                 if r["label"] == label)} for step in steps},
             "opt_step_ms_median": mean(label, lambda r: r["opt_step_ms_median"]),
             "opt_step_ms_medians": [r["opt_step_ms_median"] for r in runs if r["label"] == label],
             "gptj_prefill_ms": {q: mean(label, lambda r, q=q: r["gptj_prefill_ms"][q])
@@ -238,6 +279,9 @@ def widths_ab(base, change, smi):
     summary["change_less_base"] = {
         "opt_step_ms_median": (summary["change"]["opt_step_ms_median"]
                                - summary["base"]["opt_step_ms_median"]),
+        "gptj_train_step_ms_median": {
+            step: (summary["change"]["gptj_train"][step]["step_ms_median"]
+                   - summary["base"]["gptj_train"][step]["step_ms_median"]) for step in steps},
         "gptj_prefill_ms": {q: summary["change"]["gptj_prefill_ms"][q]
                             - summary["base"]["gptj_prefill_ms"][q]
                             for q in summary["base"]["gptj_prefill_ms"]}}
