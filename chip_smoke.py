@@ -13,7 +13,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      call computing the same function as a yardstick (never used by the port);
      the flash forward and backward at the main paths' shapes on their TMA +
      wgmma route (bf16 at head_dim 128 and 64), the CE forward and the
-     block-sparse forward and backward on theirs, each case also held and
+     block-sparse forward and backward on theirs (at every width with blocks
+     a multiple of 64), each case also held and
      timed through the old wmma route in turns (``_route="wmma"``); the
      quantized matmul (int8, int4) at Llama-7B's linears for every token
      count phase 7 runs (a TMA + wgmma route case also through the old wmma
@@ -64,8 +65,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      one ``eval_batch``, with the launch counts read around every step (24
      block-sparse forward, 24 backward and 1 CE launch, all on their wgmma
      routes, no flash launch) and
-     one more step under the profiler. Phase 2 holds the block-sparse
-     forward and backward against their plain versions at its layers, at
+     one more step under the profiler; then its twin of 64-token blocks (8
+     local, 2 global: the same (query, key) pairs), whose first step's loss
+     and grads on phase 8's weights and batch must equal phase 8's within
+     ``bf16_limit``, through the same loop. Phase 2 holds the block-sparse
+     forward and backward against their plain versions at its layers (both
+     layouts), at
      the same tokens as b 3 x s 4096 (beside the dense flash kernels) and at
      every pattern, block 16-128 and dtype at small sizes; phase 3 trains 2
      layers of it at GPT-2-medium width on the card against the CPU port;
@@ -85,8 +90,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      forwards, 32 backwards and one CE forward a step, all on wgmma) and on
      GPT-J-6B at full width cut to 12 of its 28 layers at b 2 x s 2048, with
      flash attention (a flash forward and backward a layer, all on wgmma)
-     and with phase 8's block-sparse pattern (a block-sparse forward on
-     wgmma and a backward on wmma a layer, and one ``eval_batch``).
+     and with phase 8's block-sparse pattern (a block-sparse forward and
+     backward a layer, both on wgmma, and one ``eval_batch``).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -150,6 +155,12 @@ TRAIN_CONFIG = {"train_batch_size": TRAIN_BATCH, "bf16": {"enabled": True},
 SPARSE_ATTENTION = {"attention_impl": "block_sparse", "sparse_pattern": "fixed",
                     "sparse_block": 128,
                     "sparse_pattern_config": {"num_local_blocks": 4, "num_global_blocks": 1}}
+# and its twin of 64-token blocks, 8 local and 2 global: stretches of 512
+# tokens whose last 128 are global, so it keeps exactly phase 8's (query,
+# key) pairs (88 of the 64-token blocks against 24 of 128)
+SPARSE_ATTENTION_64 = {"attention_impl": "block_sparse", "sparse_pattern": "fixed",
+                       "sparse_block": 64,
+                       "sparse_pattern_config": {"num_local_blocks": 8, "num_global_blocks": 2}}
 
 
 def log(msg):
@@ -920,13 +931,14 @@ def train_model_config():
                        fused_ce=True, fused_ce_impl="pallas")
 
 
-def train_sparse_model_config():
+def train_sparse_model_config(attention=SPARSE_ATTENTION):
     """Phase 8's model: phase 6's GPT-2 medium with block-sparse attention in
-    the JAX package's default pattern (``SPARSE_ATTENTION``)."""
+    the JAX package's default pattern (``SPARSE_ATTENTION``), or its twin of
+    64-token blocks (``SPARSE_ATTENTION_64``)."""
     from deepspeed_tpu_torch.models import gpt2_config
 
     return gpt2_config("medium", vocab_size=TRAIN_VOCAB, remat=False, fused_ce=True,
-                       fused_ce_impl="pallas", **SPARSE_ATTENTION)
+                       fused_ce_impl="pallas", **attention)
 
 
 def check_limit(name, diff, limit, tol):
@@ -1243,10 +1255,10 @@ def phase_width_kernels(torch, F):
     lse) and OPT-2.7B's and GPT-J-6B's training shapes; the backward causal
     at s 1024, with GQA and s_q < s_kv, and at the training shapes; the
     block-sparse kernels at s 1024 with the fixed pattern of 64-token blocks
-    (and, at head_dim 256, phase 9's 32-token blocks); the block-sparse
-    forward (its wgmma route) with phase 8's pattern of 128-token blocks at
-    s 2048 in bf16 and fp16, and in bf16 at GPT-J-6B's training shape with
-    its backward. Each case is timed beside its plain version, its bound and
+    (and, at head_dim 256, phase 9's 32-token blocks), and with phase 8's
+    pattern of 128-token blocks at s 2048 in bf16 and fp16 and in bf16 at
+    GPT-J-6B's training shape (all on their wgmma routes but at head_dim 32
+    and 32-token blocks). Each case is timed beside its plain version, its bound and
     SDPA (for the block-sparse kernels: with the layout's token mask); a
     case on the wgmma route also holds the wmma route forced at its shape
     against the plain version and times the two in turns. Returns the cases
@@ -1530,7 +1542,7 @@ def phase_width_kernels(torch, F):
             for block in blocks:
                 sparse_width_case(tag(f"fixed{block}-s1024"), preset, dtype, 1, 1024, h, d, block,
                                   WIDTH_SPARSE["sparse_pattern_config"], True)
-            # phase 8's pattern of 128-token blocks: the forward's wgmma route
+            # phase 8's pattern of 128-token blocks: both kernels' wgmma routes
             if d != 32 and dtype != torch.float32:
                 # (name, batch, seq, heads, main path: phase 10's block-sparse
                 # step, GPT-J-6B's)
@@ -1540,14 +1552,14 @@ def phase_width_kernels(torch, F):
                                  for tname, tc, tb, ts in trains
                                  if tname == "gptj-train" and tc.head_dim == d]
                 for name, b, s, hq, main_path in sp_cases:
-                    if block_sparse_route(dtype, d, SPARSE_ATTENTION["sparse_block"],
-                                          "fwd") != "wgmma":
-                        raise AssertionError(f"block-sparse forward {tag(name)} {dtype}: not on "
-                                             f"the wgmma route")
+                    for part in ("fwd", "bwd"):
+                        if block_sparse_route(dtype, d, SPARSE_ATTENTION["sparse_block"],
+                                              part) != "wgmma":
+                            raise AssertionError(f"block-sparse {part} {tag(name)} {dtype}: not "
+                                                 f"on the wgmma route")
                     sparse_width_case(tag(name), preset, dtype, b, s, hq, d,
                                       SPARSE_ATTENTION["sparse_block"],
-                                      SPARSE_ATTENTION["sparse_pattern_config"],
-                                      main_path is not None, main_path)
+                                      SPARSE_ATTENTION["sparse_pattern_config"], True, main_path)
     worst = max(r["limit_use"] for rs in out.values() for r in rs)
     new = [r for rs in out.values() for r in rs
            if r.get("kernel_route") == "wgmma" and r["old_route_ms"] is not None]
@@ -1951,11 +1963,16 @@ def phase_sparse_kernels(torch, F):
     versions: at phase 8's layers (b 12, s 1024, h 16, d 64, the fixed
     pattern of 128-token blocks, 4 local and 1 global, causal, bf16; and
     fp32), at the same tokens as one long sequence (b 3, s 4096, where the
-    port's dense flash kernels are timed beside them) and, untimed, every
+    port's dense flash kernels are timed beside them), at phase 8's layers
+    with its twin of 64-token blocks (8 local, 2 global), with the fixed
+    pattern of 64-token blocks (2 local, 1 global) at s 1024 at head_dim 64
+    and 128, and with bigbird's of 64-token blocks, and, untimed, every
     pattern causal and not at blocks 16/32/64/128 in bf16, fp16 and fp32 at
     small sizes. The timed cases carry the plain versions' time, the bound
-    (the kept score elements' operations against the bytes) and SDPA
-    forward and backward with the layout's token mask as the yardstick."""
+    (the kept score elements' operations against the bytes), SDPA forward
+    and backward with the layout's token mask as the yardstick and, at
+    blocks of 64, the (64-row half, block) pairs the wgmma kernels' q tiles
+    walk against those their halves need (``TileLists``)."""
     import itertools
 
     import numpy as np
@@ -1969,13 +1986,23 @@ def phase_sparse_kernels(torch, F):
                                                               flash_attention_fwd)
 
     h, d = 16, 64
-    timed = [("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.bfloat16),
-             ("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.float32),
+    fixed = SPARSE_ATTENTION["sparse_pattern_config"]
+    fixed64 = SPARSE_ATTENTION_64["sparse_pattern_config"]
+    # (name, b, s, heads, head_dim, pattern, block, causal, dtype, pattern config)
+    timed = [("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.bfloat16, fixed),
+             ("main", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 128, True, torch.float32, fixed),
              ("long-s4096", TRAIN_BATCH * TRAIN_SEQ // 4096, 4096, h, d, "fixed", 128, True,
-              torch.bfloat16)]
+              torch.bfloat16, fixed),
+             ("main64", TRAIN_BATCH, TRAIN_SEQ, h, d, "fixed", 64, True, torch.bfloat16,
+              fixed64),
+             ("fixed64-s1024", 1, 1024, h, d, "fixed", 64, True, torch.bfloat16,
+              WIDTH_SPARSE["sparse_pattern_config"]),
+             ("fixed64-s1024", 1, 1024, 32, 128, "fixed", 64, True, torch.bfloat16,
+              WIDTH_SPARSE["sparse_pattern_config"]),
+             ("bigbird64-s1024", 1, 1024, h, d, "bigbird", 64, True, torch.bfloat16, {})]
     # head_dim alternates 64 / 128 over the cases
     breadth = [(f"{pat}-b{blk}-{'causal' if causal else 'noncausal'}", 1, 256, 2,
-                (64, 128)[i % 2], pat, blk, causal, dtype)
+                (64, 128)[i % 2], pat, blk, causal, dtype, {})
                for i, (pat, blk, causal, dtype) in enumerate(itertools.product(
                    SA.PATTERNS, (16, 32, 64, 128), (True, False),
                    (torch.bfloat16, torch.float16, torch.float32)))]
@@ -1983,13 +2010,13 @@ def phase_sparse_kernels(torch, F):
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     fwd_out, bwd_out = [], []
     checked = set()
-    for name, b, s, hh, dd, pattern, block, causal, dtype in timed + breadth:
-        kwargs = SPARSE_ATTENTION["sparse_pattern_config"] if (name, dtype) in {
-            (t[0], t[-1]) for t in timed} else {}
+    for i_case, (name, b, s, hh, dd, pattern, block, causal, dtype, kwargs) in enumerate(
+            timed + breadth):
         attn = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kwargs), s,
                                        causal=causal, device="cuda")
         lists = attn.lists
-        if name == "main" and dtype == torch.bfloat16:
+        main_path = name in ("main", "main64") and dtype == torch.bfloat16
+        if main_path:
             checked.add((b, s, hh, hh, dd, attn.layout.tobytes()))
         q, k, v, do = (rnd(b, s, hh, dd).to(dtype) for _ in range(4))
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=causal, return_lse=True)
@@ -2034,10 +2061,12 @@ def phase_sparse_kernels(torch, F):
                 check_limit(f"{label} {gname} (wmma route)",
                             (old_grads[i].float() - refs[i].float()).abs(), limits[i], tol)
         common = dict(case=name, dtype=str(dtype).split(".")[1], b=b, s=s, h=hh, d=dd,
-                      pattern=pattern, block=block, causal=causal,
-                      main_path=name == "main" and dtype == torch.bfloat16,
+                      pattern=pattern, block=block, causal=causal, main_path=main_path,
                       kept_blocks=int(attn.layout.sum()), max_active=lists.max_a,
                       density=attn.density, tolerance=tol)
+        if lists.q_tiles is not None:
+            common.update(q_pairs_walked=lists.q_tiles.walked,
+                          q_pairs_needed=lists.q_tiles.needed)
         f = dict(common, max_abs_err=(o.float() - ref.float()).abs().max().item(),
                  lse_max_abs_err=(lse - ref_lse).abs().max().item(), limit_use=use,
                  lse_limit_use=lse_use, kernel_route=routes["fwd"], old_route_ms=None)
@@ -2045,7 +2074,7 @@ def phase_sparse_kernels(torch, F):
                  limit_use=max(uses.values()), limit_use_by_grad=uses, kernel_route=routes["bwd"],
                  old_route_ms=None)
         del limit, limits, grads, refs, old_grads, old_fwd
-        if (name, dtype) in {(t[0], t[-1]) for t in timed}:
+        if i_case < len(timed):
             kept = kept_pairs(attn.layout, block, s, s, causal)
             peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
             size = q.numel() * q.element_size()
@@ -2100,6 +2129,9 @@ def phase_sparse_kernels(torch, F):
             for r, part in ((f, "fwd"), (g, "bwd")):
                 r["tflops"] = r["flops"] / r["ms"] / 1e9
                 extra = f"  dense flash {r['flash_ms']:.4f} ms" if "flash_ms" in r else ""
+                if block % 128 and "q_pairs_walked" in r:
+                    extra += (f"  d {dd}, block {block}: (half, block) pairs walked "
+                              f"{r['q_pairs_walked']} / needed {r['q_pairs_needed']}")
                 was = (f" (wmma route {r['old_route_ms']:.4f} ms)"
                        if r.get("old_route_ms") is not None else "")
                 log(f"  block-sparse {part} {name:10s} {r['dtype']:8s} err {r['max_abs_err']:.2e} "
@@ -2113,7 +2145,7 @@ def phase_sparse_kernels(torch, F):
         bwd_out.append(g)
         del q, k, v, do, o, lse, ref, ref_lse
     worst = max(max(r["limit_use"] for r in fwd_out), max(r["limit_use"] for r in bwd_out))
-    n_wgmma = sum(r["kernel_route"] == "wgmma" for r in bwd_out)
+    n_wgmma = sum(r["kernel_route"] == "wgmma" for r in bwd_out[len(timed):])
     log(f"  block-sparse breadth: {len(breadth)} cases (5 patterns x blocks 16/32/64/128 x "
         f"causal/non-causal x bf16/fp16/fp32), forward, lse, dq, dk, dv each within its "
         f"limit (worst {worst:.2f} of a limit); {n_wgmma} forward and backward cases on the "
@@ -2182,6 +2214,84 @@ def phase_train_card_vs_cpu(torch, sparse=False):
     return {"losses": losses, "grads": grads}
 
 
+def phase_sparse64_parity(torch):
+    """Phase 8's twin of 64-token blocks (``SPARSE_ATTENTION_64``: the same
+    (query, key) pairs as ``SPARSE_ATTENTION``, another tile walk: 64-row kv
+    tiles, and q tiles that walk the union of their halves' lists) against
+    phase 8 on phase 8's weights and batch: one bf16 forward + backward of
+    full GPT-2 medium at b12 x s1024 with each pattern, the twin's loss and
+    every grad within ``bf16_limit`` of phase 8's (3 E + u |fp32|, E the
+    distance of phase 8's bf16 run from an fp32 forward + backward on the
+    card of phase 8's layout on the masters rounded to bf16: the same math
+    on another tile walk errs as much as phase 8's own rounding, at most
+    twice). Every block-sparse launch of the bf16 runs on the wgmma route."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import CausalLM
+    from deepspeed_tpu_torch.models.layers import flatten_tree, tree_map
+    from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS
+
+    names = ("block_sparse_attention_fwd", "block_sparse_attention_fwd_wgmma",
+             "block_sparse_attention_bwd", "block_sparse_attention_bwd_wgmma")
+    batch = {"input_ids": np.random.RandomState(0).randint(0, TRAIN_VOCAB,
+                                                           (TRAIN_BATCH, TRAIN_SEQ))}
+    fp32_config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    masters, losses, grads = None, {}, {}
+    for name, attention, config in (("block128", SPARSE_ATTENTION, TRAIN_CONFIG),
+                                    ("block64", SPARSE_ATTENTION_64, TRAIN_CONFIG),
+                                    ("fp32", SPARSE_ATTENTION, fp32_config)):
+        cfg = train_sparse_model_config(attention)
+        params = None
+        if masters is not None:
+            params = tree_map((lambda t: t.to(torch.bfloat16).float()) if name == "fp32"
+                              else (lambda t: t.clone()), masters)
+        eng, *_ = deepspeed_tpu_torch.initialize(model=CausalLM(cfg), config=config,
+                                                 model_parameters=params)
+        if masters is None:   # phase 8's: the config's seed
+            masters = tree_map(lambda t: t.detach().clone(), eng.params)
+        before = dict(LAUNCH_COUNTS)
+        losses[name] = torch.tensor(eng.forward(batch).item(), dtype=torch.float64)
+        eng.backward()
+        got = {k: LAUNCH_COUNTS[k] - before[k] for k in names}
+        if name != "fp32" and got != {k: cfg.n_layers for k in names}:
+            raise AssertionError(f"phase 8 {name}: block-sparse launches {got}, expected "
+                                 f"{cfg.n_layers} of each")
+        grads[name] = {k: p.grad.detach().float().clone()
+                       for k, p in flatten_tree(eng.params).items() if p.grad is not None}
+        eng.destroy()
+        del eng
+        torch.cuda.empty_cache()
+    del masters
+
+    def check(what, got, want, ref):
+        lim = torch.clamp_min(bf16_limit(want, ref), 1e-30)
+        diff = (got - want).abs()
+        use = (diff / lim).max().item()
+        if not use <= 1.0:
+            raise AssertionError(f"phase 8 block 64 vs block 128 {what}: max abs err "
+                                 f"{diff.max().item()}, {use:.2f} of the limit (block 128 vs "
+                                 f"fp32 {(want - ref).abs().max().item()})")
+        return {"max_abs_err": diff.max().item(), "limit_use": use,
+                "block128_vs_fp32": (want - ref).abs().max().item(),
+                "max_abs": ref.abs().max().item()}
+
+    out = {"tolerance": "3 max|block128 - fp32| + 2^-8 |fp32| per element (bf16_limit)",
+           "loss": check("loss", losses["block64"], losses["block128"], losses["fp32"])}
+    out["loss"]["values"] = {k: v.item() for k, v in losses.items()}
+    per_grad = {k: check(f"grad {k}", grads["block64"][k], grads["block128"][k],
+                         grads["fp32"][k]) for k in sorted(grads["block128"])}
+    worst = max(per_grad, key=lambda k: per_grad[k]["limit_use"])
+    out["grads_checked"] = len(per_grad)
+    out["worst_grad"] = dict(per_grad[worst], name=worst)
+    log(f"  first step on phase 8's weights and batch: loss block 64 "
+        f"{losses['block64'].item():.6f}, block 128 {losses['block128'].item():.6f}, fp32 "
+        f"{losses['fp32'].item():.6f} ({out['loss']['limit_use']:.2f} of the limit); "
+        f"{len(per_grad)} grads within bf16_limit, worst {worst} "
+        f"{per_grad[worst]['limit_use']:.2f} of it")
+    return out
+
+
 def model_flops_per_step(cfg, tokens, seq, pairs=None):
     """6 N T (forward 2, backward 4 operations per parameter and token, the
     tied head's GEMM included) plus the attention's 12 L d h pairs (QK^T and
@@ -2194,22 +2304,22 @@ def model_flops_per_step(cfg, tokens, seq, pairs=None):
             + 12 * cfg.n_layers * cfg.head_dim * cfg.n_heads * pairs * (tokens // seq))
 
 
-def phase_training(torch, checked, sparse=False, width=None):
+def phase_training(torch, checked, sparse=False, width=None, attention=SPARSE_ATTENTION):
     """Phase 6 (or, with ``sparse``, phase 8; with ``width``, one of phase
     10's steps): ``initialize`` -> ``train_batch`` on full GPT-2 medium at
-    bench.py's shape and config (phase 8: with block-sparse attention; phase
+    bench.py's shape and config (phase 8: with block-sparse attention in
+    ``attention``'s pattern, phase 8's or its 64-token twin's; phase
     10, ``width="opt-2.7b"``: full OPT-2.7B at WIDTH_TRAIN_BATCH x
     WIDTH_TRAIN_SEQ, ``width="gptj-6b"``: GPT-J-6B at full width and
     GPTJ_TRAIN_LAYERS layers at GPTJ_TRAIN_BATCH x GPTJ_TRAIN_SEQ, with flash
     or, with ``sparse``, block-sparse attention; the same engine config), on
     one fixed batch drawn from seed 0: TRAIN_WARMUP warm-up steps, then
     TRAIN_STEPS timed steps, each ended by a host read of its loss; the
-    launch counts read around every step (every flash and CE launch, and
-    every block-sparse forward, on the wgmma route; the block-sparse
-    backward on the route ``block_sparse_route`` gives its width); one more
-    step under torch.profiler. The block-sparse runs also take one
-    ``eval_batch`` (forward kernels only). The attention and CE shapes must
-    have been held against the plain versions in phase 2."""
+    launch counts read around every step (every flash, CE and block-sparse
+    launch on the wgmma route); one more step under torch.profiler. The
+    block-sparse runs also take one ``eval_batch`` (forward kernels only).
+    The attention and CE shapes must have been held against the plain
+    versions in phase 2."""
     import numpy as np
 
     import deepspeed_tpu_torch
@@ -2225,14 +2335,15 @@ def phase_training(torch, checked, sparse=False, width=None):
         cfg, n_batch, seq, config = (gptj_train_model_config(sparse), GPTJ_TRAIN_BATCH,
                                      GPTJ_TRAIN_SEQ, GPTJ_TRAIN_CONFIG)
     else:
-        cfg = train_sparse_model_config() if sparse else train_model_config()
+        cfg = train_sparse_model_config(attention) if sparse else train_model_config()
         n_batch, seq, config = TRAIN_BATCH, TRAIN_SEQ, TRAIN_CONFIG
     phase = 10 if width else 8 if sparse else 6
     L = cfg.n_layers
     shape = (n_batch, seq, cfg.n_heads, cfg.kv_heads, cfg.head_dim)
-    pairs = None
+    pairs = tiles = None
     if sparse:
-        layout = _block_sparse_attn(cfg, seq, torch.device("cuda")).layout
+        attn = _block_sparse_attn(cfg, seq, torch.device("cuda"))
+        layout, tiles = attn.layout, attn.lists.q_tiles
         pairs = kept_pairs(layout, cfg.sparse_block, seq, seq, cfg.causal)
         shape = shape + (layout.tobytes(),)
     if shape not in checked["block_sparse" if sparse else "flash"] or (
@@ -2248,14 +2359,17 @@ def phase_training(torch, checked, sparse=False, width=None):
     log(f"  init {name} ({cfg.num_params() / 1e6:.1f} M params, fp32 masters, bf16 "
         f"compute) in {time.perf_counter() - t0:.3f} s")
     batch = {"input_ids": np.random.RandomState(0).randint(0, cfg.vocab_size, (n_batch, seq))}
-    # every CE launch, flash launch and block-sparse forward of the step on
-    # the TMA + wgmma route; the block-sparse backward on its width's route
+    # every CE, flash and block-sparse launch of the step on the TMA + wgmma route
     if sparse:
-        bwd_wgmma = L if block_sparse_route(torch.bfloat16, cfg.head_dim, cfg.sparse_block,
-                                            "bwd") == "wgmma" else 0
+        for part in ("fwd", "bwd"):
+            if block_sparse_route(torch.bfloat16, cfg.head_dim, cfg.sparse_block,
+                                  part) != "wgmma":
+                raise AssertionError(f"phase {phase}: the block-sparse {part} at head_dim "
+                                     f"{cfg.head_dim}, block {cfg.sparse_block} has no wgmma "
+                                     f"route")
         expected = {"block_sparse_attention_fwd": L, "block_sparse_attention_bwd": L,
                     "block_sparse_attention_fwd_wgmma": L,
-                    "block_sparse_attention_bwd_wgmma": bwd_wgmma, "fused_ce_forward": 1,
+                    "block_sparse_attention_bwd_wgmma": L, "fused_ce_forward": 1,
                     "fused_ce_forward_wgmma": 1, "flash_attention_fwd": 0,
                     "flash_attention_bwd": 0}
     else:
@@ -2293,19 +2407,21 @@ def phase_training(torch, checked, sparse=False, width=None):
         (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
     tokens = n_batch * seq
     flops = model_flops_per_step(cfg, tokens, seq, pairs)
+    if sparse:
+        sp = cfg.sparse_pattern_config
+        pattern = (f"block-sparse attention: {cfg.sparse_pattern}, block {cfg.sparse_block}, "
+                   f"{sp['num_local_blocks']} local, {sp['num_global_blocks']} global")
     if width == "opt-2.7b":
         model = "opt-2.7b (registry: vocab 50272, flash, no remat, fused CE pallas)"
         formula = "6 N T + 12 L d_head h (causal pairs) (T / seq)"
     elif width == "gptj-6b":
         model = (f"gptj-6b at full width, {L} of its 28 layers (registry: vocab 50400, untied "
                  f"biased head, partial rotary, no remat, fused CE pallas) with "
-                 + ("block-sparse attention: fixed, block 128, 4 local, 1 global" if sparse
-                    else "flash attention"))
+                 + (pattern if sparse else "flash attention"))
         formula = ("6 N T + 12 L d_head h (the layout's kept pairs) (T / seq)" if sparse else
                    "6 N T + 12 L d_head h (causal pairs) (T / seq)")
     elif sparse:
-        model = ("gpt2-medium (bench.py: vocab 50304, no remat, fused CE pallas) with "
-                 "block-sparse attention: fixed, block 128, 4 local, 1 global")
+        model = f"gpt2-medium (bench.py: vocab 50304, no remat, fused CE pallas) with {pattern}"
         formula = "6 N T + 12 L d_head h (the layout's kept pairs) (T / seq)"
     else:
         model = "gpt2-medium (bench.py: vocab 50304, flash, no remat, fused CE pallas)"
@@ -2319,7 +2435,10 @@ def phase_training(torch, checked, sparse=False, width=None):
            "mfu_vs_989_tflops": flops / (median_ms / 1e3) / H100_BF16_FLOPS}
     if sparse:
         out.update(eval_loss=eval_loss, attention_pairs_per_head=pairs,
-                   causal_pairs_per_head=seq * (seq + 1) // 2)
+                   causal_pairs_per_head=seq * (seq + 1) // 2,
+                   q_pairs_walked=tiles.walked, q_pairs_needed=tiles.needed)
+        log(f"  {pattern}: the wgmma kernels' q tiles walk {tiles.walked} (64-row half, "
+            f"block) pairs a head for the {tiles.needed} their halves need")
     log(f"  step ms median {median_ms:.1f} over {TRAIN_STEPS} steps; tokens/s "
         f"{out['tokens_per_s']:.0f}; model FLOPs/step ({out['model_flops_formula']}) "
         f"{flops / 1e12:.2f} T = {out['mfu_vs_989_tflops']:.3f} of 989 TFLOP/s; peak device "
@@ -2915,6 +3034,15 @@ def main():
         "pattern, block 128, b12 x s1024, bf16)")
     sparse_training = phase_training(torch, checked, sparse=True)
     torch.cuda.empty_cache()
+    log("phase 8: its twin of 64-token blocks (fixed, 8 local, 2 global: phase 8's (query, key) "
+        "pairs), the first step's loss and grads against phase 8's, then the training path")
+    sparse64_parity = phase_sparse64_parity(torch)
+    torch.cuda.empty_cache()
+    sparse64_training = phase_training(torch, checked, sparse=True,
+                                       attention=SPARSE_ATTENTION_64)
+    torch.cuda.empty_cache()
+    log(f"  step ms median: block 64 {sparse64_training['step_ms_median']:.1f}, phase 8's "
+        f"block 128 {sparse_training['step_ms_median']:.1f}")
 
     log(f"phase 9: head dims {sorted({w[0] for w in WIDTHS})} at full width "
         f"({', '.join(' '.join(m) for m in WIDTH_MODELS)}, {WIDTH_LAYERS} layers, fp32) on the "
@@ -2944,6 +3072,7 @@ def main():
                "quant_serve_int8": quant["int8"]["serving"]["launches"],
                "quant_generate_int4": quant["int4"]["launches_generate"],
                "train_block_sparse": sparse_training["launches"],
+               "train_block_sparse_64": sparse64_training["launches"],
                "widths": widths_launches,
                "widths_generate": width_paths["generate_launches"],
                "widths_train": width_paths["train"]["launches"],
@@ -2958,6 +3087,8 @@ def main():
                     "quant_generate_int4": ("flash_attention_fwd", "quantized_matmul_int4"),
                     "train_block_sparse": ("block_sparse_attention_fwd",
                                            "block_sparse_attention_bwd", "fused_ce_forward"),
+                    "train_block_sparse_64": ("block_sparse_attention_fwd",
+                                              "block_sparse_attention_bwd", "fused_ce_forward"),
                     "widths": ("flash_attention_fwd", "flash_attention_bwd",
                                "block_sparse_attention_fwd", "block_sparse_attention_bwd"),
                     "widths_generate": ("flash_attention_fwd",),
@@ -2981,16 +3112,19 @@ def main():
             if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
                 raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                      f"{by_path[path][name]} {name} launches on the wgmma route")
-    # phases 6, 8 and 10: every CE launch, and every block-sparse launch
-    # (phase 10's GPT-J-6B: its forwards; its backward at head_dim 256 takes
-    # the wmma route, which phase_training counts), on the TMA + wgmma route
+    # phases 6, 8 and 10: every CE launch and every block-sparse launch (at
+    # 64-token blocks and at GPT-J-6B's head_dim 256 too) on the TMA + wgmma route
     for path, name in (("train", "fused_ce_forward"), ("train_block_sparse", "fused_ce_forward"),
+                       ("train_block_sparse_64", "fused_ce_forward"),
                        ("widths_train", "fused_ce_forward"),
                        ("widths_train_gptj", "fused_ce_forward"),
                        ("widths_train_gptj_sparse", "fused_ce_forward"),
                        ("train_block_sparse", "block_sparse_attention_fwd"),
                        ("train_block_sparse", "block_sparse_attention_bwd"),
-                       ("widths_train_gptj_sparse", "block_sparse_attention_fwd")):
+                       ("train_block_sparse_64", "block_sparse_attention_fwd"),
+                       ("train_block_sparse_64", "block_sparse_attention_bwd"),
+                       ("widths_train_gptj_sparse", "block_sparse_attention_fwd"),
+                       ("widths_train_gptj_sparse", "block_sparse_attention_bwd")):
         if by_path[path][f"{name}_wgmma"] != by_path[path][name]:
             raise AssertionError(f"{path}: {by_path[path][f'{name}_wgmma']} of "
                                  f"{by_path[path][name]} {name} launches on the wgmma route")
@@ -3040,8 +3174,14 @@ def main():
                   for bits in (8, 4)}
     paged_int8_main = next(c for c in paged_int8_cases
                            if c["main_path"] and c["dtype"] == "bfloat16")
-    sparse_main = {part: next(c for c in sparse_cases[part] if c["main_path"])
-                   for part in ("fwd", "bwd")}
+    sparse_main = {part: next(c for c in sparse_cases[part] if c["case"] == "main"
+                              and c["dtype"] == "bfloat16") for part in ("fwd", "bwd")}
+    sparse_main64 = {part: next(c for c in sparse_cases[part] if c["case"] == "main64")
+                     for part in ("fwd", "bwd")}
+    # GPT-J-6B's layer on phase 10's block-sparse step
+    gptj_layer = {part: next(c for c in width_cases[f"block_sparse_{part}"]
+                             if c["main_path"] == "train" and c["dtype"] == "bfloat16")
+                  for part in ("fwd", "bwd")}
     long_case = {part: next(c for c in sparse_cases[part]
                             if c["case"] == "long-s4096" and c["dtype"] == "bfloat16")
                  for part in ("fwd", "bwd")}
@@ -3209,10 +3349,15 @@ def main():
         "launches_by_route": by_route(f"block_sparse_attention_{part}"),
         "kernel_route": head["kernel_route"], "old_route_ms": head["old_route_ms"],
         "routes": f"wgmma: the flash {'forward' if part == 'fwd' else 'backward'}'s TMA + "
-                  "wgmma kernels over the layout's lists, bf16/fp16 at head_dim "
-                  + ("64, 80, 96, 128 and 256" if part == "fwd" else "64 and 128")
-                  + " with blocks a multiple of 128; wmma: the rest; old_route_ms: the wmma "
-                  "kernels forced at the same shape, in turns",
+                  "wgmma kernels over the layout's lists by tile, bf16/fp16 at head_dim 64, "
+                  "80, 96, 128 and 256 with blocks a multiple of 64; wmma: the rest; "
+                  "old_route_ms: the wmma kernels forced at the same shape, in turns",
+        "block64_phase8": {k: sparse_main64[part].get(k) for k in (
+            "ms", "old_route_ms", "library_ms", "bound_ms", "plain_ms", "max_abs_err",
+            "limit_use", "q_pairs_walked", "q_pairs_needed")},
+        "gptj_layer": {k: gptj_layer[part][k] for k in (
+            "case", "ms", "old_route_ms", "library_ms", "bound_ms", "plain_ms", "max_abs_err",
+            "limit_use")},
         "long_s4096": {k: long_case[part][k] for k in ("ms", "old_route_ms", "library_ms",
                                                        "flash_ms", "bound_ms", "max_abs_err")},
         "launches": sum(c[f"block_sparse_attention_{part}"] for c in by_path.values()),
@@ -3233,7 +3378,8 @@ def main():
         f"{parity_err:.3e}; peak {peak:.2f} GiB (generate), {serving['peak_gib']:.2f} GiB "
         f"(serve), {training['peak_gib']:.2f} GiB (train), {sparse_training['peak_gib']:.2f} "
         f"GiB (block-sparse train); train step {training['step_ms_median']:.1f} ms, "
-        f"block-sparse {sparse_training['step_ms_median']:.1f} ms; phase 9 "
+        f"block-sparse {sparse_training['step_ms_median']:.1f} ms, at 64-token blocks "
+        f"{sparse64_training['step_ms_median']:.1f} ms; phase 9 "
         f"{sum(r['seconds'] for r in widths.values()):.1f} s; phase 10: OPT-2.7B step "
         f"{width_paths['train']['step_ms_median']:.1f} ms ({width_paths['train']['peak_gib']:.2f} "
         f"GiB), GPT-J-6B step flash {width_paths['train_gptj']['step_ms_median']:.1f} ms "
@@ -3249,6 +3395,8 @@ def main():
     log(json.dumps({"quantized": quant, "quant_card_vs_cpu": quant_parity}))
     log(json.dumps({"training_block_sparse": sparse_training,
                     "train_block_sparse_card_vs_cpu": sparse_parity}))
+    log(json.dumps({"training_block_sparse_64": sparse64_training,
+                    "block_sparse_64_vs_128": sparse64_parity}))
     log(json.dumps({"widths": widths, "widths_launches": widths_launches}))
     log(json.dumps({"width_paths": width_paths}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -819,10 +819,12 @@ extern "C" int ds_block_sparse_attention_bwd(
 }
 
 // ===================================================================================
-// The wgmma route: bf16 / fp16 with blocks a multiple of 128, the forward at
-// head_dim 64, 80, 96, 128 and 256 and the backward at 64 and 128, on the
-// kernels of csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh with the
-// layout's lists as their tile schedule (ListFwd; ListDq, ListDkv).
+// The wgmma route: bf16 / fp16 at head_dim 64, 80, 96, 128 and 256 with
+// blocks a multiple of 64, the forward and the backward, on the kernels of
+// csrc/flash_fwd_sm90.cuh and csrc/flash_bwd_sm90.cuh with the layout's
+// lists by tile as their schedule (ListFwd; ListDq, ListDkv): each 128-row q
+// tile (dK/dV: kv tile) walks the union of its two 64-row halves' lists,
+// each entry marked with the halves that own it.
 // ===================================================================================
 
 #include "flash_bwd_sm90.cuh"
@@ -830,25 +832,54 @@ extern "C" int ds_block_sparse_attention_bwd(
 
 namespace {
 
+// the forward at one width: 128-row kv tiles where the block is a multiple
+// of 128 (at head_dim 256 the width's own 64), else 64
+template <typename T, int D>
+cudaError_t list_fwd_at(const void* q, const void* k, const void* v,
+                        const flash_fwd_sm90::Args& a, int batch, const long long* strides,
+                        const flash_fwd_sm90::ListParams& lists, cudaStream_t s) {
+  namespace ff = flash_fwd_sm90;
+  if constexpr (ff::Cfg<D>::BKV > 64) {
+    if (lists.block % ff::Cfg<D>::BKV != 0)
+      return ff::launch<T, D, ff::ListFwd, 64>(q, k, v, a, batch, strides, lists, s);
+  }
+  return ff::launch<T, D, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+}
+
 template <typename T>
 cudaError_t list_fwd(const void* q, const void* k, const void* v, const flash_fwd_sm90::Args& a,
                      int batch, int head_dim, const long long* strides,
                      const flash_fwd_sm90::ListParams& lists, cudaStream_t s) {
-  namespace ff = flash_fwd_sm90;
   switch (head_dim) {
-    case 64: return ff::launch<T, 64, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-    case 80: return ff::launch<T, 80, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-    case 96: return ff::launch<T, 96, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-    case 128: return ff::launch<T, 128, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
-    case 256: return ff::launch<T, 256, ff::ListFwd>(q, k, v, a, batch, strides, lists, s);
+    case 64: return list_fwd_at<T, 64>(q, k, v, a, batch, strides, lists, s);
+    case 80: return list_fwd_at<T, 80>(q, k, v, a, batch, strides, lists, s);
+    case 96: return list_fwd_at<T, 96>(q, k, v, a, batch, strides, lists, s);
+    case 128: return list_fwd_at<T, 128>(q, k, v, a, batch, strides, lists, s);
+    case 256: return list_fwd_at<T, 256>(q, k, v, a, batch, strides, lists, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t list_bwd(const void* const* ptr, const flash_bwd_sm90::Args& a, int batch,
+                     int head_dim, const flash_bwd_sm90::ListParams& fwd,
+                     const flash_bwd_sm90::ListParams& bwd, cudaStream_t s) {
+  namespace fb = flash_bwd_sm90;
+  switch (head_dim) {
+    case 64: return fb::launch<T, 64, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+    case 80: return fb::launch<T, 80, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+    case 96: return fb::launch<T, 96, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+    case 128: return fb::launch<T, 128, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+    case 256: return fb::launch<T, 256, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The forward: the arguments as ds_block_sparse_attention_fwd's, and q_order,
-// the grid's order of the layout's q blocks (a permutation, int32). Every
+// The forward: the arguments as ds_block_sparse_attention_fwd's, except that
+// idx / cnt / max_a are the layout's lists by 128-row q tile (TileLists) and
+// q_order the grid's order of those tiles (a permutation, int32). Every
 // stride a multiple of 8 elements, every base 16-byte aligned (TMA). Returns
 // a cudaError_t; what the route does not take is cudaErrorInvalidValue.
 extern "C" int ds_block_sparse_attention_fwd_wgmma(
@@ -857,8 +888,8 @@ extern "C" int ds_block_sparse_attention_fwd_wgmma(
     int s_kv, int head_dim, int block, const long long* strides, float scale, int causal,
     void* stream) {
   namespace ff = flash_fwd_sm90;
-  if (batch <= 0 || heads <= 0 || block <= 0 || block % ff::Cfg<64>::BQ != 0 || s_q <= 0 ||
-      s_kv <= 0 || s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
+  if (batch <= 0 || heads <= 0 || block <= 0 || block % 64 != 0 || s_q <= 0 || s_kv <= 0 ||
+      s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
       s_q / ff::Cfg<64>::BQ > 65535 || max_a <= 0)
     return (int)cudaErrorInvalidValue;
   ff::Args a;
@@ -880,11 +911,14 @@ extern "C" int ds_block_sparse_attention_fwd_wgmma(
 }
 
 // The backward: the arguments as ds_block_sparse_attention_bwd's, except that
-// `scratch` is the caller's fp32 buffer of 2 * batch * heads * s_q floats (lse2
-// rows, then delta rows), which the call fills, and q_order / kv_order are the
-// grid's order of the layout's q and kv blocks (permutations). Every stride a
-// multiple of 8 elements, every base 16-byte aligned (TMA). Returns a
-// cudaError_t; what the route does not take is cudaErrorInvalidValue.
+// `scratch` is the caller's fp32 buffer of 2 * batch * heads * s_pad floats
+// (s_pad: s_q rounded up to 128; lse2 rows, then delta rows), which the call
+// fills, fidx / fcnt / max_a are the layout's lists by 128-row q tile and
+// bidx / bcnt / max_aq its transposed lists by dK/dV kv tile (128 rows; 64
+// at head_dim 256), and q_order / kv_order the grid's order of those tiles
+// (permutations). Every stride a multiple of 8 elements, every base 16-byte
+// aligned (TMA). Returns a cudaError_t; what the route does not take is
+// cudaErrorInvalidValue.
 extern "C" int ds_block_sparse_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, float* scratch, void* dq, void* dk, void* dv, const int* fidx,
@@ -892,12 +926,12 @@ extern "C" int ds_block_sparse_attention_bwd_wgmma(
     int max_a, int max_aq, int dtype, int batch, int heads, int s_q, int s_kv, int head_dim,
     int block, const long long* strides, float scale, int causal, void* stream) {
   namespace fb = flash_bwd_sm90;
-  if (batch <= 0 || heads <= 0 || block <= 0 || block % fb::PAD != 0 || s_q <= 0 ||
-      s_kv <= 0 || s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
-      s_q / fb::PAD > 65535 || s_kv / fb::PAD > 65535 || max_a <= 0 || max_aq <= 0)
+  if (batch <= 0 || heads <= 0 || block <= 0 || block % 64 != 0 || s_q <= 0 || s_kv <= 0 ||
+      s_q % block != 0 || s_kv % block != 0 || (causal && s_q > s_kv) ||
+      s_q / fb::PAD > 65535 || s_kv / 64 > 65535 || max_a <= 0 || max_aq <= 0)
     return (int)cudaErrorInvalidValue;
   fb::Args a;
-  a.s_pad = s_q;   // a multiple of the 128-row pad already
+  a.s_pad = (s_q + fb::PAD - 1) / fb::PAD * fb::PAD;
   const long long rows = (long long)batch * heads * a.s_pad;
   a.lse = lse;
   a.lse2 = scratch;
@@ -918,13 +952,7 @@ extern "C" int ds_block_sparse_attention_bwd_wgmma(
   const void* ptr[8] = {q, k, v, o, dout, dq, dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 64)
-    err = fb::launch<__half, 64, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
-  if (dtype == 1 && head_dim == 128)
-    err = fb::launch<__half, 128, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
-  if (dtype == 2 && head_dim == 64)
-    err = fb::launch<__nv_bfloat16, 64, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
-  if (dtype == 2 && head_dim == 128)
-    err = fb::launch<__nv_bfloat16, 128, fb::ListDq, fb::ListDkv>(ptr, a, batch, fwd, bwd, s);
+  if (dtype == 1) err = list_bwd<__half>(ptr, a, batch, head_dim, fwd, bwd, s);
+  if (dtype == 2) err = list_bwd<__nv_bfloat16>(ptr, a, batch, head_dim, fwd, bwd, s);
   return (int)err;
 }

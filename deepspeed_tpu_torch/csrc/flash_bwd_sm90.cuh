@@ -2,7 +2,7 @@
 // fp16 at head_dim 64, 80, 96, 128 and 256, driven by a tile schedule: shared
 // by the dense flash backward (csrc/flash_attention_bwd.cu, the dense causal
 // range, every width) and the block-sparse backward
-// (csrc/block_sparse_attention.cu, the layout's lists, head_dim 64 and 128).
+// (csrc/block_sparse_attention.cu, the layout's lists, every width too).
 //
 // Head dims 80 and 96 are padded to two 64-column panels (DP = 128) as in the
 // forward (csrc/flash_fwd_sm90.cuh): TMA fills the columns past head_dim
@@ -66,13 +66,16 @@
 //     in order, q tiles from the causal diagonal on, for each query head of
 //     the group;
 //   * ListDq / ListDkv (the block-sparse backward): a block of the layout is
-//     a whole number of tiles (its size a multiple of 128). A dQ block walks
-//     the 64-row halves of the kv blocks of its q block's forward list
-//     fidx[qb, :fcnt[qb]] in the list's (ascending) order, a dK/dV block the
-//     q tiles of the q blocks of its kv block's transposed list; with causal
-//     masking a tile wholly past the diagonal is skipped, not masked. The
-//     grid rows take the layout's rows in the host's heavy-first order
-//     (SparseLayout: the longest lists first).
+//     a multiple of 64 tokens, so each warpgroup's 64 rows (q rows in dQ, kv
+//     rows in dK/dV; at head_dim 256 the dK/dV block's one 64-row half) lie
+//     in one block. A dQ block walks the kv tiles of the kv blocks of the
+//     ascending union of its two q halves' forward lists, a dK/dV block the
+//     q tiles of the q blocks of the union of its kv halves' transposed
+//     lists; a warpgroup whose block does not list the entry takes the tile
+//     as wholly masked (P = dS = 0), so both keep the one producer stream.
+//     With causal masking a tile wholly past the diagonal is skipped, not
+//     masked. The grid rows take the tiles in the host's heavy-first order
+//     (SparseLayout.q_tiles / kv_tiles: the longest unions first).
 // Within a tile the per-element mask applies where the tile crosses the causal
 // diagonal (q_offset = s_kv - s_q, the TPU kernel's) or the end of s_kv.
 
@@ -179,6 +182,7 @@ struct DenseDq {
   struct Cursor {
     int t;
     __device__ int next() { return BKV * t++; }   // the next kv tile's first row
+    __device__ bool owns(int) const { return true; }
   };
   __device__ Cursor cursor() const { return Cursor{0}; }
 };
@@ -205,24 +209,26 @@ struct DenseDkv {
       q0 = q_start + (t % n_q) * BQ;
       ++t;
     }
+    __device__ bool owns(int) const { return true; }
   };
   __device__ Cursor cursor() const { return Cursor{h0, q_start, n_q, 0}; }
 };
 
-// dQ over the forward lists: the 64-row halves of each listed kv block
+// dQ over the forward lists: the kv tiles of each kv block of the q tile's union
 template <int BQ, int BKV>
 using ListDq = ListQ<BQ, BKV>;
 
-// dK/dV over the transposed lists: the BQ-row q tiles of each listed q block
-// (one head: the block-sparse kernels take q, k and v with one head count)
+// dK/dV over the transposed lists: the BQ-row q tiles of each q block of the
+// kv tile's union (one head: the block-sparse kernels take q, k and v with
+// one head count)
 template <int BQ, int BKV>
 struct ListDkv {
   using Params = ListParams;
-  static_assert(BKV % 64 == 0, "list tiles");
+  static_assert(BKV % 64 == 0 && 64 % BQ == 0, "list tiles");
   struct Cursor {
     const int* list;
     int block, lim, causal, h;   // lim: the first query row that sees the kv tile
-    int i, sub, q_blk;
+    int i, sub, q_blk, own;
     // the first q tile of the block starting at row q whose last row reaches the kv tile
     __device__ int first(int q) const {
       if (!causal) return 0;
@@ -231,24 +237,28 @@ struct ListDkv {
     }
     __device__ void next(int& head, int& q0) {   // the next q tile's head and first row
       while (sub >= block / BQ) {
-        q_blk = list[i++] * block;
+        const int e = list[i++];
+        q_blk = (e >> 2) * block;
+        own = e & 3;
         sub = first(q_blk);
       }
       head = h;
       q0 = q_blk + BQ * sub++;
     }
+    // does kv half `half` own the tile next() returned last?
+    __device__ bool owns(int half) const { return (own >> half) & 1; }
   };
   int kv0, n;
   Cursor start;
   __device__ ListDkv(const Args& a, const Params& p) {
-    const int per = p.block / BKV;
-    const int kb = p.order[blockIdx.y / per];
-    kv0 = kb * p.block + (blockIdx.y % per) * BKV;
-    start = Cursor{p.idx + (long long)kb * p.max_a, p.block, kv0 - (a.s_kv - a.s_q), a.causal,
-                   (int)(blockIdx.x % a.kv_heads), 0, p.block / BQ, 0};
-    const int cnt = p.cnt[kb];
+    const int tile = p.order[blockIdx.y];
+    kv0 = tile * BKV;
+    start = Cursor{p.idx + (long long)tile * p.max_a, p.block, kv0 - (a.s_kv - a.s_q), a.causal,
+                   (int)(blockIdx.x % a.kv_heads), 0, p.block / BQ, 0, 0};
+    const int cnt = p.cnt[tile];
     n = 0;
-    for (int i = 0; i < cnt; ++i) n += p.block / BQ - start.first(start.list[i] * p.block);
+    for (int i = 0; i < cnt; ++i)
+      n += p.block / BQ - start.first((start.list[i] >> 2) * p.block);
   }
   __device__ Cursor cursor() const { return start; }
 };
@@ -402,7 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // S_t, dP_t (waited for) -> dS_t in s; called for t = 0, 1, ... in turn
     const auto grads = [&]() {
       const int kv0 = cur.next();
-      const bool mask = kv0 + BKV > a.s_kv ||
+      const bool dead = !cur.owns(wg);   // this warpgroup's q block does not list the tile
+      const bool mask = dead || kv0 + BKV > a.s_kv ||
                         (a.causal && kv0 + BKV - 1 > wg_first_row + q_offset);
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j)
@@ -414,7 +425,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             float pr = fast_exp2(fmaf(s[idx], sl2, -lse2[hh]));
             if (mask) {
               const int col = kv0 + 8 * j + cq + e;
-              if (col >= a.s_kv || (a.causal && col > row0 + 8 * hh + q_offset)) pr = 0.0f;
+              if (dead || col >= a.s_kv || (a.causal && col > row0 + 8 * hh + q_offset))
+                pr = 0.0f;
             }
             s[idx] = pr * (dp[idx] - delta[hh]) * a.scale;   // dS
           }
@@ -643,7 +655,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       cur.next(h, q0);
       const float* stats = reinterpret_cast<const float*>(
           smem + C::st_off + (n % STAGES) * C::STAGE_BYTES + 2 * C::QT_BYTES);
-      const bool mask = a.causal && wg_last_row > q0 + q_offset;
+      // this warpgroup's kv block does not list the q tile's block
+      const bool dead = !cur.owns(wg * C::WG_ROWS / 64);
+      const bool mask = dead || (a.causal && wg_last_row > q0 + q_offset);
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * j + cq);
@@ -654,7 +668,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int e = 0; e < 2; ++e) {
             const int idx = 4 * j + 2 * hh + e;
             float pr = fast_exp2(fmaf(s[idx], sl2, -(e ? l2.y : l2.x)));
-            if (mask && krow0 + 8 * hh > q0 + 8 * j + cq + e + q_offset) pr = 0.0f;
+            if (mask && (dead || krow0 + 8 * hh > q0 + 8 * j + cq + e + q_offset)) pr = 0.0f;
             dp[idx] = pr * (dp[idx] - (e ? dl.y : dl.x)) * a.scale;   // dS^T
             s[idx] = pr;                                               // P^T
           }

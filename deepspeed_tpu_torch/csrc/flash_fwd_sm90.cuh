@@ -49,13 +49,15 @@
 // A schedule says which q tile a grid position is and which kv tiles it walks:
 //   * DenseFwd (the flash forward): q tiles from the last (the longest causal
 //     rows first), kv tiles 0 .. the causal diagonal;
-//   * ListFwd (the block-sparse forward): a layout block is a whole number of
-//     128-row tiles (its size a multiple of 128; at head_dim 256 each kv
-//     block is walked in 64-row kv tiles). A q tile walks the tiles of
-//     the kv blocks of its q block's forward list fidx[qb, :fcnt[qb]] in the
-//     list's (ascending) order; with causal masking a tile wholly past the
-//     diagonal is skipped, not masked. The grid rows take the layout's q
-//     blocks in the host's heavy-first order (SparseLayout.q_order).
+//   * ListFwd (the block-sparse forward): a layout block is a multiple of 64
+//     tokens, so each warpgroup's 64 q rows lie in one q block. A q tile
+//     walks the kv tiles (128 rows where the block is a multiple of 128,
+//     else 64; 64 at head_dim 256) of the kv blocks of the ascending union of
+//     its two halves' forward lists; a warpgroup whose q block does not list
+//     the entry masks the whole tile (S = -inf), so both keep the one
+//     producer stream. With causal masking a tile wholly past the diagonal
+//     is skipped, not masked. The grid rows take the q tiles in the host's
+//     heavy-first order (SparseLayout.q_tiles).
 // A q tile whose schedule holds no tile writes o = 0 and lse = -1e30 +
 // log(1e-30), what the plain version writes for a row that sees no key.
 
@@ -77,13 +79,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_BIG = -1e30f;                   // the plain version's running max at start
 
-template <int D>
+// KV: the kv tile's rows where the schedule fixes them (a layout of 64-token
+// blocks: 64), else 0 for the width's own
+template <int D, int KV = 0>
 struct Cfg {
   static_assert(D % 16 == 0 && D <= 256, "wgmma forward head_dim");
   static constexpr int DP = (D + 63) / 64 * 64;     // the width in whole 64-column panels
   static constexpr int BQ = 64 * CONSUMERS;
-  static constexpr int BKV = DP > 128 ? 64 : 128;   // head_dim 256: 64 + 4 x 32 KB of tiles
-  static constexpr int STAGES = 2;
+  // head_dim 256: 64 + 4 x 32 KB of tiles
+  static constexpr int BKV = KV ? KV : DP > 128 ? 64 : 128;
+  // 64-row tiles of at most 128 columns: twice the stages in the same bytes
+  static constexpr int STAGES = BKV == 64 && DP <= 128 ? 4 : 2;
   static constexpr int PANELS = DP / 64;
   static constexpr int Q_BYTES = BQ * DP * 2;       // TMA's zero fill counts as bytes
   static constexpr int KV_BYTES = BKV * DP * 2;     // one K or V tile
@@ -123,11 +129,12 @@ struct DenseFwd {
   struct Cursor {
     int t;
     __device__ int next() { return BKV * t++; }   // the next kv tile's first key
+    __device__ bool owns(int) const { return true; }
   };
   __device__ Cursor cursor() const { return Cursor{0}; }
 };
 
-// the block-sparse forward: the kv tiles of each listed kv block
+// the block-sparse forward: the kv tiles of each kv block of a q tile's union list
 template <int BQ, int BKV>
 using ListFwd = ListQ<BQ, BKV>;
 
@@ -144,11 +151,12 @@ __device__ __forceinline__ void turn_pass(int wg) {
 
 // the online softmax of one S tile for this thread's two rows: S becomes P
 // (unrounded), m (log2 domain) and the per-thread row sums l advance, and
-// corr is the factor the O accumulator must be rescaled by
+// corr is the factor the O accumulator must be rescaled by; `dead` (a tile
+// this warpgroup's q block does not list) masks every element
 template <int BKV, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], float sl2, int row0, int col0,
-                                             int limit_off, int s_kv, int causal) {
+                                             int limit_off, int s_kv, int causal, bool dead) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
@@ -159,7 +167,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m)[2],
         float x = s[4 * j + 2 * h + e] * sl2;
         if constexpr (MASK) {
           const int col = col0 + 8 * j + e;
-          if (col >= s_kv || (causal && col > row0 + 8 * h + limit_off)) x = -INFINITY;
+          if (dead || col >= s_kv || (causal && col > row0 + 8 * h + limit_off)) x = -INFINITY;
         }
         s[4 * j + 2 * h + e] = x;
         mx = fmaxf(mx, x);
@@ -196,12 +204,12 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&corr)[
     }
 }
 
-template <typename T, int D, template <int, int> class Sched>
+template <typename T, int D, template <int, int> class Sched, int KV>
 __global__ void __launch_bounds__(THREADS, 1)
     fwd_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
                __grid_constant__ const CUtensorMap tm_v, const Args p,
-               const typename Sched<Cfg<D>::BQ, Cfg<D>::BKV>::Params sp) {
-  using C = Cfg<D>;
+               const typename Sched<Cfg<D, KV>::BQ, Cfg<D, KV>::BKV>::Params sp) {
+  using C = Cfg<D, KV>;
   constexpr int BQ = C::BQ, BKV = C::BKV, STAGES = C::STAGES, DP = C::DP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -317,13 +325,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     // S_t (waited for) -> P_t, with m, l and corr advanced; called for t = 0, 1, ... in turn
     const auto softmax = [&]() {
       const int kv0 = cur.next();
+      const bool dead = !cur.owns(wg);
       // does any (row, column) of this warpgroup's tile need a mask?
-      const bool mask = kv0 + BKV > p.s_kv ||
+      const bool mask = dead || kv0 + BKV > p.s_kv ||
                         (p.causal && kv0 + BKV - 1 > wg_first_row + q_offset);
       if (mask)
-        softmax_tile<BKV, true>(s, m, l, corr, sl2, row0, kv0 + cq, q_offset, p.s_kv, p.causal);
+        softmax_tile<BKV, true>(s, m, l, corr, sl2, row0, kv0 + cq, q_offset, p.s_kv, p.causal,
+                                dead);
       else
-        softmax_tile<BKV, false>(s, m, l, corr, sl2, row0, kv0 + cq, q_offset, p.s_kv, p.causal);
+        softmax_tile<BKV, false>(s, m, l, corr, sl2, row0, kv0 + cq, q_offset, p.s_kv, p.causal,
+                                 false);
     };
     const auto release = [&](uint32_t bar) {
       __syncwarp();
@@ -390,20 +401,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // The kernel on the caller's stream; st holds the (batch, seq, head) element
 // strides of q, k and v. The grid: (batch * heads, ceil(s_q / 128)); the
-// schedule maps its grid row to a q tile.
-template <typename T, int D, template <int, int> class Sched>
+// schedule maps its grid row to a q tile. KV as Cfg's.
+template <typename T, int D, template <int, int> class Sched, int KV = 0>
 cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int batch,
                    const long long* st,
-                   const typename Sched<Cfg<D>::BQ, Cfg<D>::BKV>::Params& sp,
+                   const typename Sched<Cfg<D, KV>::BQ, Cfg<D, KV>::BKV>::Params& sp,
                    cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, KV>;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // a runtime call first: it makes the device's context current on this
   // thread (the backward runs on autograd's own thread), which encoding a
   // tensor map through the driver needs
-  auto kernel = fwd_kernel<T, D, Sched>;
+  auto kernel = fwd_kernel<T, D, Sched, KV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
   if (err != cudaSuccess) return err;

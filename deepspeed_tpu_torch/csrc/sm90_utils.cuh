@@ -490,8 +490,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 // -- tile schedules over a block-sparse layout's lists -----------------------------
 
-// a layout's lists (ops/cuda/block_sparse_attention.py SparseLayout): idx
-// [rows, max_a] ascending, cnt [rows], order a permutation of the rows
+// A layout's lists by grid tile (ops/cuda/block_sparse_attention.py
+// TileLists): for each tile of `rows` rows (its 64-row halves each inside
+// one layout block), the ascending union of its halves' lists, each entry
+// (block << 2) | owners, bit h set when half h's block lists it; cnt [tiles],
+// order a permutation of the tiles (the grid's), max_a the row length.
 struct ListParams {
   const int* idx;
   const int* cnt;
@@ -500,21 +503,23 @@ struct ListParams {
   int block;
 };
 
-// A BQ-row q tile walking the BKV-row kv tiles of the kv blocks its q block's
-// list holds, in the list's order (a block is a whole number of both tiles):
-// grid row blockIdx.y is a q tile of the q block order[blockIdx.y / (block /
-// BQ)]. With causal masking (key c seen by query r when c <= r + s_kv - s_q)
-// a kv tile that no row of the q tile reaches is skipped. The tile schedule
-// of the flash forward's and dQ kernels on a layout (ListFwd, ListDq); Args
-// is the kernel's, with s_q, s_kv and causal.
+// A BQ-row q tile (two 64-row halves, one a consumer warpgroup) walking the
+// BKV-row kv tiles of the kv blocks of its union list, in the list's order
+// (a block is a whole number of kv tiles): grid row blockIdx.y is q tile
+// order[blockIdx.y]. With causal masking (key c seen by query r when c <= r
+// + s_kv - s_q) a kv tile that no row of the q tile reaches is skipped. A
+// warpgroup whose half does not own the current entry treats the whole tile
+// as masked (owns() is uniform over the warpgroup). The tile schedule of
+// the flash forward's and dQ kernels on a layout (ListFwd, ListDq); Args is
+// the kernel's, with s_q, s_kv and causal.
 template <int BQ, int BKV>
 struct ListQ {
   using Params = ListParams;
-  static_assert(BQ % 64 == 0 && BKV % 64 == 0, "list tiles");
+  static_assert(BQ == 128 && BKV % 32 == 0, "list tiles");   // block % BKV == 0: the host's
   struct Cursor {
     const int* list;
     int block, lim, causal;   // lim: the last key the q tile's last row sees
-    int i, sub, k0, n_sub;
+    int i, sub, k0, n_sub, own;
     // the kv tiles of the block starting at key k that some row of the q tile reaches
     __device__ int reach(int k) const {
       if (!causal) return block / BKV;
@@ -522,25 +527,28 @@ struct ListQ {
     }
     __device__ int next() {   // the next kv tile's first key
       while (sub >= n_sub) {
-        k0 = list[i++] * block;
+        const int e = list[i++];
+        k0 = (e >> 2) * block;
+        own = e & 3;
         n_sub = reach(k0);
         sub = 0;
       }
       return k0 + BKV * sub++;
     }
+    // does q half `half` own the tile next() returned last?
+    __device__ bool owns(int half) const { return (own >> half) & 1; }
   };
   int q0, n;   // the q tile's first row, its kv tiles
   Cursor start;
   template <class Args>
   __device__ ListQ(const Args& a, const Params& p) {
-    const int per = p.block / BQ;
-    const int qb = p.order[blockIdx.y / per];
-    q0 = qb * p.block + (blockIdx.y % per) * BQ;
-    start = Cursor{p.idx + (long long)qb * p.max_a, p.block, q0 + BQ - 1 + a.s_kv - a.s_q,
-                   a.causal, 0, 0, 0, 0};
-    const int cnt = p.cnt[qb];
+    const int tile = p.order[blockIdx.y];
+    q0 = tile * BQ;
+    start = Cursor{p.idx + (long long)tile * p.max_a, p.block,
+                   min(q0 + BQ, a.s_q) - 1 + a.s_kv - a.s_q, a.causal, 0, 0, 0, 0, 0};
+    const int cnt = p.cnt[tile];
     n = 0;
-    for (int i = 0; i < cnt; ++i) n += start.reach(start.list[i] * p.block);
+    for (int i = 0; i < cnt; ++i) n += start.reach((start.list[i] >> 2) * p.block);
   }
   __device__ Cursor cursor() const { return start; }
 };

@@ -11,13 +11,13 @@ per-q-block active kv lists and the transposed lists, on one device, built
 once; every call reads them there.
 
 Both have two routes, fixed by ``block_sparse_route(dtype, head_dim,
-block, kernel)`` before the launch: ``wgmma`` (bf16 and fp16 with a block
-that is a multiple of 128, the forward at head_dim 64, 80, 96, 128 and 256,
-the backward at 64 and 128: the flash forward's and backward's TMA + wgmma
-kernels walking the layout's lists, the grid in the layout's heavy-first
-order) and ``wmma`` (everything else the kernels take: warp-level wmma or
-fp32 FMAs through shared memory). A failed build or launch raises; neither
-route falls back to the other.
+block, kernel)`` before the launch: ``wgmma`` (bf16 and fp16 at head_dim 64,
+80, 96, 128 and 256 with a block that is a multiple of 64: the flash
+forward's and backward's TMA + wgmma kernels walking the layout's lists by
+tile, ``TileLists``, the grid in heavy-first order) and ``wmma``
+(everything else the kernels take: warp-level wmma or fp32 FMAs through
+shared memory). A failed build or launch raises; neither route falls back
+to the other.
 
 Layout ``[b, s, h, d]`` in and out, one head count for q, k and v (the model
 repeats GQA kv heads before the call, as the JAX package does); causal
@@ -44,18 +44,25 @@ from .flash_attention import (_KERNEL_DTYPES, _KERNEL_HEAD_DIMS,  # noqa: F401 (
 NEG_INF = -1e30
 
 # the TMA + wgmma route takes 16-bit types at these head dims, the
-# forward's and the backward's, when a layout block is a whole number of its
-# 128-row tiles (the backward's other widths are not instantiated over the
-# lists)
-_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 128)}
-_WGMMA_BLOCK = 128
+# forward's and the backward's, when each 64-row half of its tiles lies in
+# one layout block
+_WGMMA_HEAD_DIMS = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 80, 96, 128, 256)}
+_WGMMA_BLOCK = 64
+# the rows of the wgmma kernels' grid tiles: the forward's and dQ's q tile,
+# the dK/dV kernel's kv tile (64 at head_dim 256, csrc/flash_bwd_sm90.cuh
+# DkvCfg); each is one or two 64-row halves
+_Q_TILE = 128
+
+
+def _kv_tile(head_dim):
+    return 64 if head_dim > 128 else 128
 
 
 def block_sparse_route(dtype, head_dim, block, kernel):
     """The route the block-sparse ``kernel`` (``"fwd"`` or ``"bwd"``) takes
     for ``dtype``, ``head_dim`` and the layout's ``block``: a pure function
     of the four, decided before the launch. ``"wgmma"`` for bf16/fp16 at the
-    kernel's ``_WGMMA_HEAD_DIMS`` with a block that is a multiple of 128,
+    kernel's ``_WGMMA_HEAD_DIMS`` with a block that is a multiple of 64,
     ``"wmma"`` for every other shape the kernels take (fp32/fp16/bf16,
     head_dim in ``_KERNEL_HEAD_DIMS``, a block that is a multiple of 16);
     None where no route does."""
@@ -101,14 +108,49 @@ def _active_lists(layout):
     return idx, counts, max_a
 
 
+class TileLists:
+    """A layout's lists by the wgmma kernels' grid tiles of ``rows`` rows (128
+    or 64; the block a multiple of 64, so each 64-row half of a tile lies in
+    one block): ``idx`` ``[tiles, max_a]`` int32 holds, for each tile, the
+    ascending union of its halves' lists, each entry ``(block << 2) |
+    owners`` (bit h set when half h's block lists it; padded with zeros),
+    ``cnt`` the union's length and ``order`` the grid's order of the tiles
+    (``heavy_first`` of ``cnt``). ``walked`` / ``needed`` count (64-row
+    half, listed block) pairs: the halves a union makes walk, against those
+    their own lists hold (equal when the two halves of every tile share a
+    list, as at blocks of 128 and more)."""
+
+    def __init__(self, layout, block, rows, to):
+        n_rows = layout.shape[0] * block
+        n_tiles = -(-n_rows // rows)
+        unions, walked, needed = [], 0, 0
+        for t in range(n_tiles):
+            own = np.zeros(layout.shape[1], np.int32)
+            halves = range(t * rows, min((t + 1) * rows, n_rows), 64)
+            for h, r0 in enumerate(halves):
+                own |= layout[r0 // block].astype(np.int32) << h
+            listed = np.nonzero(own)[0]
+            unions.append((listed << 2) | own[listed])
+            walked += len(listed) * len(halves)
+            needed += int(sum(bin(int(o)).count("1") for o in own[listed]))
+        cnt = np.asarray([len(u) for u in unions], np.int32)
+        self.max_a = max(1, int(cnt.max()))
+        idx = np.zeros((n_tiles, self.max_a), np.int32)
+        for t, u in enumerate(unions):
+            idx[t, :len(u)] = u
+        self.walked, self.needed = walked, needed
+        self.idx, self.cnt, self.order = to(idx), to(cnt), to(heavy_first(cnt))
+
+
 class SparseLayout:
     """A ``[n_q_blocks, n_kv_blocks]`` block layout of ``block``-token blocks
     and its active lists on ``device``: ``fwd_idx``/``fwd_cnt`` (the kv
     blocks each q block attends, ascending, padded with the last) and
     ``bwd_idx``/``bwd_cnt`` (the same of the transposed layout: the q blocks
-    attending each kv block), int32, copied to the device once; and
-    ``q_order``/``kv_order``, the wgmma kernels' grid orders of the q and
-    kv blocks (``heavy_first`` of the two counts)."""
+    attending each kv block), int32, copied to the device once; and, for a
+    block that is a multiple of 64, the wgmma kernels' lists by tile
+    (``TileLists``): ``q_tiles`` over the forward lists by 128-row q tile,
+    ``kv_tiles[rows]`` over the transposed ones by 128- and 64-row kv tile."""
 
     def __init__(self, layout, block, device="cpu"):
         self.layout = np.asarray(layout, bool)
@@ -118,7 +160,11 @@ class SparseLayout:
         to = lambda a: torch.as_tensor(a, dtype=torch.int32).to(device)
         self.fwd_idx, self.fwd_cnt = to(fidx), to(fcnt)
         self.bwd_idx, self.bwd_cnt = to(bidx), to(bcnt)
-        self.q_order, self.kv_order = to(heavy_first(fcnt)), to(heavy_first(bcnt))
+        self.q_tiles, self.kv_tiles = None, {}
+        if self.block % _WGMMA_BLOCK == 0:
+            self.q_tiles = TileLists(self.layout, self.block, _Q_TILE, to)
+            self.kv_tiles = {rows: TileLists(self.layout.T, self.block, rows, to)
+                             for rows in (128, 64)}
         self.device = self.fwd_idx.device  # "cuda" resolved to its index
 
 
@@ -321,17 +367,20 @@ def block_sparse_attention_fwd(q, k, v, lists, causal=True, scale=None, return_l
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = load_op("block_sparse_attention")
     tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               lse.data_ptr() if return_lse else None, lists.fwd_idx.data_ptr(),
-               lists.fwd_cnt.data_ptr())
-    shape = (lists.max_a, _KERNEL_DTYPES[q.dtype], b, h, s_q, k.shape[1], d, lists.block,
+               lse.data_ptr() if return_lse else None)
+    shape = (_KERNEL_DTYPES[q.dtype], b, h, s_q, k.shape[1], d, lists.block,
              (ctypes.c_longlong * 12)(*strides), float(scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "wgmma":
-            err = lib.ds_block_sparse_attention_fwd_wgmma(*tensors, lists.q_order.data_ptr(),
-                                                          *shape, stream)
+            t = lists.q_tiles
+            err = lib.ds_block_sparse_attention_fwd_wgmma(
+                *tensors, t.idx.data_ptr(), t.cnt.data_ptr(), t.order.data_ptr(), t.max_a,
+                *shape, stream)
         else:
-            err = lib.ds_block_sparse_attention_fwd(*tensors, *shape, stream)
+            err = lib.ds_block_sparse_attention_fwd(*tensors, lists.fwd_idx.data_ptr(),
+                                                    lists.fwd_cnt.data_ptr(), lists.max_a,
+                                                    *shape, stream)
     if err:
         raise RuntimeError(f"block_sparse_attention_fwd launch failed ({route} route): "
                            f"cudaError_t {err}")
@@ -384,22 +433,26 @@ def block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True, scale=No
     lib = load_op("block_sparse_attention")
     tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                lse.data_ptr())
-    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lists.fwd_idx.data_ptr(),
-            lists.fwd_cnt.data_ptr(), lists.bwd_idx.data_ptr(), lists.bwd_cnt.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (_KERNEL_DTYPES[q.dtype], b, h, s_q, k.shape[1], d, lists.block,
              (ctypes.c_longlong * 24)(*strides), float(scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "wgmma":
-            # lse * log2(e) rows, then delta rows (s_q is a multiple of 128)
-            scratch = torch.empty((2, b * h, s_q), dtype=torch.float32, device=q.device)
+            # lse * log2(e) rows, then delta rows, each s_q padded to the q tile
+            s_pad = -(-s_q // _Q_TILE) * _Q_TILE
+            scratch = torch.empty((2, b * h, s_pad), dtype=torch.float32, device=q.device)
+            qt, kt = lists.q_tiles, lists.kv_tiles[_kv_tile(d)]
             err = lib.ds_block_sparse_attention_bwd_wgmma(
-                *tensors, scratch.data_ptr(), *outs, lists.q_order.data_ptr(),
-                lists.kv_order.data_ptr(), lists.max_a, lists.max_aq, *shape, stream)
+                *tensors, scratch.data_ptr(), *grads, qt.idx.data_ptr(), qt.cnt.data_ptr(),
+                kt.idx.data_ptr(), kt.cnt.data_ptr(), qt.order.data_ptr(), kt.order.data_ptr(),
+                qt.max_a, kt.max_a, *shape, stream)
         else:
             delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-            err = lib.ds_block_sparse_attention_bwd(*tensors, delta.data_ptr(), *outs,
-                                                    lists.max_a, lists.max_aq, *shape, stream)
+            err = lib.ds_block_sparse_attention_bwd(
+                *tensors, delta.data_ptr(), *grads, lists.fwd_idx.data_ptr(),
+                lists.fwd_cnt.data_ptr(), lists.bwd_idx.data_ptr(), lists.bwd_cnt.data_ptr(),
+                lists.max_a, lists.max_aq, *shape, stream)
     if err:
         raise RuntimeError(f"block_sparse_attention_bwd launch failed ({route} route): "
                            f"cudaError_t {err}")

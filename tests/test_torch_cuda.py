@@ -425,10 +425,43 @@ def test_padded_columns_never_reach_an_output(cuda):
     the first d columns of wider buffers (128 columns; 384 at head_dim 256,
     whose tiles are whole panels) whose other columns hold NaN: the forward
     (with lse) and the backward must match the plain versions on the same
-    views, every output finite, on the wgmma route; bf16 and fp16."""
+    views, every output finite, on the wgmma route; bf16 and fp16. The
+    block-sparse forward and backward too, at blocks of 64 and 128 (s_q <
+    s_kv, causal)."""
     for d in (80, 96, 256):
         for dtype in (torch.bfloat16, torch.float16):
             _check_padded_columns(cuda, dtype, d)
+            for block in (64, 128):
+                _check_sparse_padded_columns(cuda, dtype, d, block)
+
+
+def _check_sparse_padded_columns(cuda, dtype, d, block):
+    """The block-sparse half of ``test_padded_columns_never_reach_an_output``:
+    the fixed pattern at ``block``, s_q 3 blocks < s_kv 5, causal."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_fwd)
+
+    lists, q, k, v, do = _sparse_case("fixed", block, True, 3 * block, 5 * block, 1, 2, d, dtype,
+                                      cuda)
+    width = 128 if d < 128 else 384
+
+    def view(t):
+        wide = torch.full(t.shape[:3] + (width,), float("nan"), dtype=dtype, device=cuda)
+        wide[..., :d] = t
+        return wide[..., :d]
+
+    q, k, v, do = (view(t) for t in (q, k, v, do))
+    before = dict(LAUNCH_COUNTS)
+    out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, True, f"padded d{d} b{block}")
+    o = view(out)
+    _check_sparse_grads(block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=True),
+                        q, k, v, o, lse, do, lists, True, f"padded d{d} b{block}")
+    for part in ("fwd", "bwd"):
+        name = f"block_sparse_attention_{part}_wgmma"
+        assert LAUNCH_COUNTS[name] == before[name] + 1, part
 
 
 def _check_padded_columns(cuda, dtype, d):
@@ -1145,19 +1178,40 @@ def test_block_sparse_bwd_routes_match_plain(cuda, pattern, block, mode, dtype, 
     for every pattern at blocks 128 and 256, causal (s_q = s_kv and s_q <
     s_kv) and not: within 1e-5 + ``bwd_rounding_bound``. The wgmma route is
     the one ``block_sparse_route`` picks; each launch counts on its route."""
+    _check_block_sparse_bwd_routes(cuda, pattern, block, mode, dtype, d)
+
+
+def _check_sparse_grads(grads, q, k, v, o, lse, do, lists, causal, what):
+    """dq, dk, dv within 1e-5 + ``bwd_rounding_bound`` of the plain version,
+    each finite."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
-        block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
-        block_sparse_attention_fwd_reference, block_sparse_route, bwd_rounding_bound)
+        block_sparse_attention_bwd_reference, bwd_rounding_bound)
+
+    refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=causal)
+    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, lists, causal=causal)
+    for name, g, r, bound in zip(("dq", "dk", "dv"), grads, refs, bounds):
+        assert g.dtype == q.dtype and g.shape == r.shape, (what, name)
+        assert torch.isfinite(g).all(), (what, name)
+        diff = (g.float() - r.float()).abs()
+        worst = (diff / (1e-5 + bound)).max().item()
+        assert worst <= 1.0, (f"{what} {name}: max abs err {diff.max().item()}, "
+                              f"{worst:.2f} of the limit")
+
+
+def _check_block_sparse_bwd_routes(device, pattern, block, mode, dtype, d):
+    """Both routes of the block-sparse backward against the plain version
+    (``_check_sparse_grads``): the wgmma route is the one
+    ``block_sparse_route`` picks, and each launch counts on its route."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+        block_sparse_attention_bwd, block_sparse_attention_fwd_reference, block_sparse_route)
 
     causal = mode != "noncausal"
     s_kv = 8 * block
     s_q = s_kv - block if mode == "causal-sq<skv" else s_kv
-    lists, q, k, v, do = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, cuda)
+    lists, q, k, v, do = _sparse_case(pattern, block, causal, s_q, s_kv, 1, 2, d, dtype, device)
     assert block_sparse_route(dtype, d, block, "bwd") == "wgmma"
     o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=causal, return_lse=True)
     o = o.to(dtype)
-    refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=causal)
-    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, lists, causal=causal)
     for route in ("wgmma", "wmma"):
         before = dict(LAUNCH_COUNTS)
         grads = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=causal,
@@ -1167,42 +1221,40 @@ def test_block_sparse_bwd_routes_match_plain(cuda, pattern, block, mode, dtype, 
             before["block_sparse_attention_bwd"] + 1)
         assert LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] == (
             before["block_sparse_attention_bwd_wgmma"] + (route == "wgmma"))
-        for i, (name, g, r) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
-            assert g.dtype == dtype and g.shape == r.shape, name
-            diff = (g.float() - r.float()).abs()
-            worst = (diff / (1e-5 + bounds[i])).max().item()
-            assert worst <= 1.0, (f"{route} {name}: max abs err {diff.max().item()}, "
-                                  f"{worst:.2f} of the limit")
+        _check_sparse_grads(grads, q, k, v, o, lse, do, lists, causal,
+                            f"{pattern} {block} {mode} {dtype} d{d} {route}")
 
 
 def test_block_sparse_wgmma_bwd_zeroes_unattended_kv_blocks(cuda):
-    """A non-causal 128-token layout in which kv blocks 1 and 2 are attended
-    by no query, and q block 2 attends nothing: their dK, dV and dQ come
-    back zero on the wgmma route, the rest within its bound."""
+    """A non-causal layout in which kv blocks 1 and 2 are attended by no
+    query, and q block 2 attends nothing: their dK, dV and dQ come back zero
+    on the wgmma route, the rest within its bound; at blocks of 128 and 64
+    (where a 128-row tile's other half keeps the tile walked) and at every
+    wgmma width."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
-        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
-        block_sparse_attention_fwd_reference, bwd_rounding_bound)
+        SparseLayout, block_sparse_attention_bwd, block_sparse_attention_fwd_reference)
 
     layout = np.zeros((4, 4), bool)
     layout[:, 0] = True
     layout[3, 3] = True
     layout[2, :] = False
-    lists = SparseLayout(layout, 128, cuda)
-    q, k, v = _qkv(1, 512, 512, 2, 2, 64, torch.bfloat16, cuda)
-    do = torch.ones_like(q)
-    o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=False, return_lse=True)
-    o = o.to(q.dtype)
-    before = LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"]
-    dq, dk, dv = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=False)
-    torch.cuda.synchronize()
-    assert LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] == before + 1
-    assert (dk[:, 128:384] == 0).all() and (dv[:, 128:384] == 0).all()
-    assert (dq[:, 256:384] == 0).all()
-    assert dv[:, :128].abs().sum() > 0 and dv[:, 384:].abs().sum() > 0
-    refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists, causal=False)
-    bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, lists, causal=False)
-    for g, r, bnd in zip((dq, dk, dv), refs, bounds):
-        assert ((g.float() - r.float()).abs() <= 1e-5 + bnd).all()
+    for blk in (128, 64):
+        lists = SparseLayout(layout, blk, cuda)
+        for d in (64, 80, 96, 128, 256):
+            q, k, v = _qkv(1, 4 * blk, 4 * blk, 2, 2, d, torch.bfloat16, cuda)
+            do = torch.ones_like(q)
+            o, lse = block_sparse_attention_fwd_reference(q, k, v, lists, causal=False,
+                                                          return_lse=True)
+            o = o.to(q.dtype)
+            before = LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"]
+            dq, dk, dv = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, causal=False)
+            torch.cuda.synchronize()
+            assert LAUNCH_COUNTS["block_sparse_attention_bwd_wgmma"] == before + 1
+            assert (dk[:, blk:3 * blk] == 0).all() and (dv[:, blk:3 * blk] == 0).all()
+            assert (dq[:, 2 * blk:3 * blk] == 0).all()
+            assert dv[:, :blk].abs().sum() > 0 and dv[:, 3 * blk:].abs().sum() > 0
+            _check_sparse_grads((dq, dk, dv), q, k, v, o, lse, do, lists, False,
+                                f"block {blk} d{d}")
 
 
 def test_block_sparse_wgmma_bwd_skips_blocks_past_the_diagonal(cuda):
@@ -1214,18 +1266,22 @@ def test_block_sparse_wgmma_bwd_skips_blocks_past_the_diagonal(cuda):
         SparseLayout, block_sparse_attention_bwd, block_sparse_attention_bwd_reference,
         block_sparse_attention_fwd_reference, bwd_rounding_bound)
 
-    lists = SparseLayout(np.ones((4, 4), bool), 128, cuda)
-    for s_q in (512, 384):
-        l = lists if s_q == 512 else SparseLayout(np.ones((3, 4), bool), 128, cuda)
-        q, k, v = _qkv(1, s_q, 512, 2, 2, 128, torch.float16, cuda)
-        do = torch.randn_like(q)
-        o, lse = block_sparse_attention_fwd_reference(q, k, v, l, causal=True, return_lse=True)
-        o = o.to(q.dtype)
-        grads = block_sparse_attention_bwd(q, k, v, o, lse, do, l, causal=True, _route="wgmma")
-        refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, l, causal=True)
-        bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, l, causal=True)
-        for g, r, bnd in zip(grads, refs, bounds):
-            assert ((g.float() - r.float()).abs() <= 1e-5 + bnd).all()
+    for blk, d in ((128, 128), (64, 128), (64, 256)):
+        for s_q in (512, 384, 448):
+            if s_q % blk:
+                continue
+            l = SparseLayout(np.ones((s_q // blk, 512 // blk), bool), blk, cuda)
+            q, k, v = _qkv(1, s_q, 512, 2, 2, d, torch.float16, cuda)
+            do = torch.randn_like(q)
+            o, lse = block_sparse_attention_fwd_reference(q, k, v, l, causal=True,
+                                                          return_lse=True)
+            o = o.to(q.dtype)
+            grads = block_sparse_attention_bwd(q, k, v, o, lse, do, l, causal=True,
+                                               _route="wgmma")
+            refs = block_sparse_attention_bwd_reference(q, k, v, o, lse, do, l, causal=True)
+            bounds = bwd_rounding_bound(q, k, v, o, lse, do, refs, l, causal=True)
+            for g, r, bnd in zip(grads, refs, bounds):
+                assert ((g.float() - r.float()).abs() <= 1e-5 + bnd).all(), (blk, d, s_q)
 
 
 def test_block_sparse_wgmma_bwd_is_deterministic(cuda):
@@ -1275,33 +1331,35 @@ def test_block_sparse_wgmma_bwd_under_autograd(cuda, monkeypatch):
 
 
 def test_block_sparse_forced_route_refuses_what_it_does_not_take(cuda):
-    """A forced wgmma route raises where the kernel has none: blocks of 64,
-    fp32, and the backward at head_dim 80, 96 and 256 (the forward takes
-    those widths at block 128, forced or not)."""
+    """A forced wgmma route raises where the kernel has none: blocks of 32
+    and 48, fp32, head_dim 32; at head_dim 80, 96 and 256 with blocks of 64
+    and 128 both kernels take it, forced or not."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
         block_sparse_attention_bwd, block_sparse_attention_fwd)
 
-    for block, dtype, d in ((64, torch.bfloat16, 64), (128, torch.float32, 64),
-                            (64, torch.bfloat16, 80), (64, torch.float16, 96),
-                            (64, torch.bfloat16, 256)):
-        lists, q, k, v, do = _sparse_case("fixed", block, True, 512, 512, 1, 2, d, dtype, cuda)
+    for block, dtype, d in ((32, torch.bfloat16, 64), (128, torch.float32, 64),
+                            (32, torch.bfloat16, 80), (48, torch.float16, 96),
+                            (32, torch.bfloat16, 256), (64, torch.bfloat16, 32)):
+        lists, q, k, v, do = _sparse_case("fixed", block, True, 384, 384, 1, 2, d, dtype, cuda)
         o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True)
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_fwd(q, k, v, lists, causal=True, _route="wgmma")
     for d in (80, 96, 256):
-        lists, q, k, v, do = _sparse_case("fixed", 128, True, 512, 512, 1, 2, d, torch.bfloat16,
-                                          cuda)
-        before = dict(LAUNCH_COUNTS)
-        o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
-                                            _route="wgmma")
-        torch.cuda.synchronize()
-        assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == (
-            before["block_sparse_attention_fwd_wgmma"] + 1)
-        _assert_sparse_fwd_matches_plain(o, lse, q, k, v, lists, True, f"forced d{d}")
-        with pytest.raises(ValueError, match="route"):
-            block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
+        for block in (128, 64):
+            lists, q, k, v, do = _sparse_case("fixed", block, True, 512, 512, 1, 2, d,
+                                              torch.bfloat16, cuda)
+            before = dict(LAUNCH_COUNTS)
+            o, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
+                                                _route="wgmma")
+            grads = block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route="wgmma")
+            torch.cuda.synchronize()
+            for part in ("fwd", "bwd"):
+                name = f"block_sparse_attention_{part}_wgmma"
+                assert LAUNCH_COUNTS[name] == before[name] + 1, (d, block, part)
+            _assert_sparse_fwd_matches_plain(o, lse, q, k, v, lists, True, f"forced d{d}")
+            _check_sparse_grads(grads, q, k, v, o, lse, do, lists, True, f"forced d{d}")
 
 
 # -- the block-sparse forward's two routes -------------------------------------------
@@ -1365,21 +1423,29 @@ def test_block_sparse_fwd_routes_match_plain(cuda, pattern, block, mode, dtype, 
 
 
 def test_block_sparse_fwd_routes_match_plain_at_the_preset_widths(cuda):
-    """The same at head_dim 80 and 96 (two panels, the second zero-filled)
-    and 256 (64-row kv tiles, two a 128-token block): every pattern, blocks
-    128 and 256, causal and not, bf16 and fp16."""
-    for d in (80, 96, 256):
+    """The same, and the backward's two routes
+    (``_check_block_sparse_bwd_routes``), at head_dim 80 and 96 (two panels,
+    the second zero-filled) and 256 (64-row kv tiles; the backward's 32-row
+    dQ tiles and split dK/dV block), every pattern, blocks 64, 128 and 256,
+    causal (s_q = s_kv and s_q < s_kv: at block 64 a last q tile of one
+    half) and not, bf16 and fp16; at head_dim 64 and 128 with blocks of 64
+    (the union walks: bigbird's and variable's halves list different
+    blocks)."""
+    for d in (64, 80, 96, 128, 256):
         for pattern in _SPARSE_PATTERNS:
-            for block in (128, 256):
+            for block in (64, 128, 256) if d in (80, 96, 256) else (64,):
                 for mode in ("causal", "causal-sq<skv", "noncausal"):
                     for dtype in (torch.bfloat16, torch.float16):
                         _check_block_sparse_fwd_routes(cuda, pattern, block, mode, dtype, d)
+                        _check_block_sparse_bwd_routes(cuda, pattern, block, mode, dtype, d)
 
 
 def test_block_sparse_wgmma_fwd_writes_empty_rows_as_the_plain_version(cuda):
-    """A non-causal 128-token layout in which q block 2 attends nothing: its
-    rows come back o = 0 and lse = -1e30 (the plain version's), the rest
-    within the bound, in bf16 and fp16 at every wgmma width."""
+    """A non-causal layout in which q block 2 attends nothing: its rows come
+    back o = 0 and lse = -1e30 (the plain version's), the rest within the
+    bound, in bf16 and fp16 at every wgmma width, at blocks of 128 and 64
+    (where q block 2 shares its 128-row tile with q block 3, whose list the
+    tile walks)."""
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (SparseLayout,
                                                                      block_sparse_attention_fwd)
 
@@ -1387,16 +1453,20 @@ def test_block_sparse_wgmma_fwd_writes_empty_rows_as_the_plain_version(cuda):
     layout[:, 0] = True
     layout[3, 3] = True
     layout[2, :] = False
-    lists = SparseLayout(layout, 128, cuda)
-    for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 80, 96, 128, 256):
-            q, k, v = _qkv(2, 512, 512, 2, 2, d, dtype, cuda)
-            before = LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"]
-            out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=False, return_lse=True)
-            torch.cuda.synchronize()
-            assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == before + 1
-            assert (out[:, 256:384] == 0).all() and (lse[:, :, 256:384] == -1e30).all()
-            _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, False, f"{dtype} d{d}")
+    for blk in (128, 64):
+        lists = SparseLayout(layout, blk, cuda)
+        for dtype in (torch.bfloat16, torch.float16):
+            for d in (64, 80, 96, 128, 256):
+                q, k, v = _qkv(2, 4 * blk, 4 * blk, 2, 2, d, dtype, cuda)
+                before = LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"]
+                out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=False,
+                                                      return_lse=True)
+                torch.cuda.synchronize()
+                assert LAUNCH_COUNTS["block_sparse_attention_fwd_wgmma"] == before + 1
+                rows = slice(2 * blk, 3 * blk)
+                assert (out[:, rows] == 0).all() and (lse[:, :, rows] == -1e30).all()
+                _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, False,
+                                                 f"block {blk} {dtype} d{d}")
 
 
 def test_block_sparse_wgmma_fwd_skips_blocks_past_the_diagonal(cuda):
@@ -1406,12 +1476,16 @@ def test_block_sparse_wgmma_fwd_skips_blocks_past_the_diagonal(cuda):
     from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (SparseLayout,
                                                                      block_sparse_attention_fwd)
 
-    for s_q in (512, 384):
-        lists = SparseLayout(np.ones((s_q // 128, 4), bool), 128, cuda)
-        q, k, v = _qkv(1, s_q, 512, 2, 2, 128, torch.float16, cuda)
-        out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
-                                              _route="wgmma")
-        _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, True, f"s_q {s_q}")
+    for blk in (128, 64):
+        for s_q in (512, 384, 448):
+            if s_q % blk:
+                continue
+            lists = SparseLayout(np.ones((s_q // blk, 512 // blk), bool), blk, cuda)
+            q, k, v = _qkv(1, s_q, 512, 2, 2, 128, torch.float16, cuda)
+            out, lse = block_sparse_attention_fwd(q, k, v, lists, causal=True, return_lse=True,
+                                                  _route="wgmma")
+            _assert_sparse_fwd_matches_plain(out, lse, q, k, v, lists, True,
+                                             f"block {blk} s_q {s_q}")
 
 
 def test_block_sparse_wgmma_fwd_at_s4096_is_deterministic(cuda):

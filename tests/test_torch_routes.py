@@ -3,9 +3,10 @@ and 128, the CE forward, the block-sparse forward and backward and the
 quantized matmul, on the CPU: which kernel each shape takes (a pure
 function of dtype, width, block and m, decided before the launch), the
 host-side planning of the Hopper routes (the CE's vocab slices, the
-block-sparse grid's heavy-first order, the forward's walk over the layout's
-lists and over the dense causal range, the quantized decode kernel's k
-splits), and the forced route the shape cannot take, which raises."""
+block-sparse lists by grid tile and their heavy-first order, the
+block-sparse kernels' walks over them and the flash kernels' over the dense
+causal range, the quantized decode kernel's k splits), and the forced route
+the shape cannot take, which raises."""
 
 import ast
 import inspect
@@ -31,6 +32,11 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import (attention_route, flash
                                                           flash_attention_reference)
 
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
 
 
 def _registry_configs():
@@ -70,21 +76,22 @@ def test_ce_route_is_fixed_by_dtype_and_width():
 
 
 def test_block_sparse_route_is_fixed_by_dtype_width_and_block():
-    """bf16 and fp16 with blocks 128, 256 and 384 take the TMA + wgmma
-    forward at head_dim 64, 80, 96, 128 and 256 and the wgmma backward at 64
-    and 128; fp32, the other head dims and the smaller or unaligned blocks
-    the wmma kernels; what no kernel takes has no route, and a kernel that
-    is neither "fwd" nor "bwd" raises."""
-    wgmma = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 128)}
+    """bf16 and fp16 with blocks 64, 128, 192, 256 and 384 take the TMA +
+    wgmma forward and backward at head_dim 64, 80, 96, 128 and 256; fp32,
+    head_dim 32 and the blocks of 16, 32 and 48 the wmma kernels; what no
+    kernel takes has no route, and a kernel that is neither "fwd" nor "bwd"
+    raises."""
+    wgmma = {"fwd": (64, 80, 96, 128, 256), "bwd": (64, 80, 96, 128, 256)}
     for kernel, dims in wgmma.items():
         for dtype in (torch.bfloat16, torch.float16):
             for d in dims:
-                for block in (128, 256, 384):
+                for block in (64, 128, 192, 256, 384):
                     assert block_sparse_route(dtype, d, block, kernel) == "wgmma"
-                for block in (16, 32, 48, 64, 192):
+                for block in (16, 32, 48, 80, 112):
                     assert block_sparse_route(dtype, d, block, kernel) == "wmma"
             for d in sorted({32, 64, 80, 96, 128, 256} - set(dims)):
-                assert block_sparse_route(dtype, d, 128, kernel) == "wmma", (kernel, d)
+                for block in (64, 128):
+                    assert block_sparse_route(dtype, d, block, kernel) == "wmma", (kernel, d)
         for d in (32, 64, 80, 96, 128, 256):
             for block in (16, 128, 256):
                 assert block_sparse_route(torch.float32, d, block, kernel) == "wmma"
@@ -133,25 +140,59 @@ def test_ce_vocab_splits_fill_the_card():
 
 
 def test_heavy_first_order_of_the_training_layout():
-    """The wgmma backward's grid takes the layout's rows longest list first
+    """The wgmma kernels' grids take the layout's tiles longest union first
     (a stable sort). Phase 8's layout (fixed, 128-token blocks, 4 local, 1
     global, causal, s 1024): each 4-block window is lower triangular and
     the windows' last block (3) is global, so q blocks attend 1-5 kv blocks
-    (q block 7 the most) and kv block 3 is attended by 5 q blocks."""
+    (q block 7 the most) and kv block 3 is attended by 5 q blocks; a block
+    is a grid tile, its list the tile's. Its twin of 64-token blocks (8
+    local, 2 global) keeps the same order: each 128-row tile's union holds
+    both halves' lists, twice as many blocks. The dK/dV kernel's 64-row kv
+    tiles (head_dim 256) take the halves of the 128-row ones."""
     attn = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=128, num_local_blocks=4,
                                                         num_global_blocks=1), 1024, causal=True)
     lists = attn.lists
     assert int(attn.layout.sum()) == 24
     np.testing.assert_array_equal(lists.fwd_cnt.numpy(), [1, 2, 3, 4, 2, 3, 4, 5])
-    np.testing.assert_array_equal(lists.q_order.numpy(), [7, 3, 6, 2, 5, 1, 4, 0])
+    np.testing.assert_array_equal(lists.q_tiles.cnt.numpy(), lists.fwd_cnt.numpy())
+    np.testing.assert_array_equal(lists.q_tiles.order.numpy(), [7, 3, 6, 2, 5, 1, 4, 0])
     np.testing.assert_array_equal(lists.bwd_cnt.numpy(), [4, 3, 2, 5, 4, 3, 2, 1])
-    np.testing.assert_array_equal(lists.kv_order.numpy(), [3, 0, 4, 1, 5, 2, 6, 7])
-    assert lists.q_order.dtype == lists.kv_order.dtype == torch.int32
+    np.testing.assert_array_equal(lists.kv_tiles[128].order.numpy(), [3, 0, 4, 1, 5, 2, 6, 7])
+    np.testing.assert_array_equal(lists.kv_tiles[64].cnt.numpy(),
+                                  np.repeat(lists.bwd_cnt.numpy(), 2))
+    np.testing.assert_array_equal(lists.q_tiles.idx.numpy() >> 2 & 0xff,
+                                  np.where(np.arange(lists.max_a) < lists.fwd_cnt.numpy()[:, None],
+                                           lists.fwd_idx.numpy(), 0))
+    assert lists.q_tiles.order.dtype == lists.kv_tiles[128].order.dtype == torch.int32
+    twin = SA.BlockSparseAttention(SA.PATTERNS["fixed"](block=64, num_local_blocks=8,
+                                                        num_global_blocks=2), 1024,
+                                   causal=True).lists
+    np.testing.assert_array_equal(twin.q_tiles.cnt.numpy(), 2 * lists.fwd_cnt.numpy())
+    np.testing.assert_array_equal(twin.q_tiles.order.numpy(), [7, 3, 6, 2, 5, 1, 4, 0])
+    np.testing.assert_array_equal(twin.kv_tiles[128].cnt.numpy(), 2 * lists.bwd_cnt.numpy())
+    # the twin keeps the same (query, key) pairs, so the plain versions agree
+    # in fp32 but for the order of their sums (phase 8's 64-token layout):
+    # within 1e-6 + 1e-6 |plain| (a few ulps where |dq| reaches 3)
+    np.testing.assert_array_equal(_seen(twin, True, True, 1024, 1024),
+                                  _seen(lists, True, True, 1024, 1024))
+    r = np.random.RandomState(3)
+    q, k, v, do = (torch.tensor(r.randn(1, 1024, 2, 16), dtype=torch.float32) for _ in range(4))
+    outs = [block_sparse_attention_fwd_reference(q, k, v, sl, return_lse=True)
+            for sl in (lists, twin)]
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    o, lse = outs[0]
+    for got, want in zip(block_sparse_attention_bwd_reference(q, k, v, o, lse, do, twin),
+                         block_sparse_attention_bwd_reference(q, k, v, o, lse, do, lists)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(heavy_first([2, 0, 2, 3]), [3, 0, 2, 1])
     for layout in (np.ones((3, 5), bool), np.eye(4, dtype=bool)):
-        sl = SparseLayout(layout, 128)
-        assert sorted(sl.q_order.tolist()) == list(range(layout.shape[0]))
-        assert sorted(sl.kv_order.tolist()) == list(range(layout.shape[1]))
+        for block in (128, 64):
+            sl = SparseLayout(layout, block)
+            n_q, n_kv = (-(-n * block // 128) for n in layout.shape)
+            assert sorted(sl.q_tiles.order.tolist()) == list(range(n_q))
+            assert sorted(sl.kv_tiles[128].order.tolist()) == list(range(n_kv))
+    assert SparseLayout(np.eye(4, dtype=bool), 32).q_tiles is None   # no wgmma route
 
 
 def test_forced_route_the_shape_cannot_take_raises():
@@ -181,9 +222,16 @@ def test_forced_route_the_shape_cannot_take_raises():
         with pytest.raises(ValueError, match="route"):
             block_sparse_attention_bwd(q, k, v, o, lse, do, lists, _route=route)
     q16 = q.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="route"):   # a 64-token block
+    lists32 = SparseLayout(np.tril(np.ones((4, 4), bool)), 32)
+    with pytest.raises(ValueError, match="route"):   # a 32-token block
         block_sparse_attention_bwd(q16, k.to(q16.dtype), v.to(q16.dtype), o.to(q16.dtype), lse,
-                                   do.to(q16.dtype), lists, _route="wgmma")
+                                   do.to(q16.dtype), lists32, _route="wgmma")
+    got = block_sparse_attention_bwd(q16, k.to(q16.dtype), v.to(q16.dtype), o.to(q16.dtype),
+                                     lse, do.to(q16.dtype), lists, _route="wgmma")
+    want = block_sparse_attention_bwd_reference(q16, k.to(q16.dtype), v.to(q16.dtype),
+                                                o.to(q16.dtype), lse, do.to(q16.dtype), lists)
+    for g, w in zip(got, want):   # a 64-token block takes the wgmma route
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     lists128 = SparseLayout(np.ones((1, 1), bool), 128)
     args = [t.to(torch.bfloat16) for t in (q, k, v)]
     o16, lse16 = block_sparse_attention_fwd_reference(*args, lists128, return_lse=True)
@@ -196,105 +244,213 @@ def test_forced_route_the_shape_cannot_take_raises():
     assert dict(LAUNCH_COUNTS) == before
 
 
-def _list_fwd_walk(lists, s_q, s_kv, causal, tile=128, kv_tile=128):
+def _entries(tiles, t):
+    """(block, owner bits) of grid tile t's union list (``TileLists``)."""
+    return [(e >> 2, e & 3) for e in tiles.idx[t, :int(tiles.cnt[t])].tolist()]
+
+
+def _list_fwd_walk(lists, s_q, s_kv, causal, kv_tile=128):
     """A mirror of ``ListQ`` (csrc/sm90_utils.cuh), the wgmma forward's
-    ``ListFwd`` (``tile``-row q tiles, ``kv_tile``-row kv tiles: 64 at
-    head_dim 256): for every grid row (the q tiles of the q blocks in
-    ``q_order``), the first keys of the kv tiles its producer loads and its
-    consumers mask, in order."""
-    block = lists.block
-    idx, cnt, order = (t.tolist() for t in (lists.fwd_idx, lists.fwd_cnt, lists.q_order))
-    per = block // tile
+    ``ListFwd`` and the dQ kernel's ``ListDq`` (128-row q tiles, ``kv_tile``
+    -row kv tiles: the forward's 128, or 64 at blocks of 64 and at head_dim
+    256; dQ's 64, or 32 at 256): for every grid row (the q tiles in
+    ``q_tiles.order``), [(first key, owner bits)] of the kv tiles its
+    producer loads and its warpgroups take (bit h: q half h uses the tile),
+    in order."""
+    block, tiles = lists.block, lists.q_tiles
     walks = {}
-    for row in range(s_q // tile):
-        qb = order[row // per]
-        q0 = qb * block + (row % per) * tile
-        lim = q0 + tile - 1 + s_kv - s_q   # the last key the tile's last row sees
+    for row in range(-(-s_q // 128)):
+        t = int(tiles.order[row])
+        q0 = 128 * t
+        lim = min(q0 + 128, s_q) - 1 + s_kv - s_q   # the last key the tile's last row sees
 
         def reach(k):
             if not causal:
                 return block // kv_tile
             return 0 if lim < k else min(block // kv_tile, (lim - k) // kv_tile + 1)
 
-        n = sum(reach(idx[qb][i] * block) for i in range(cnt[qb]))
-        keys, i, sub, k0, n_sub = [], 0, 0, 0, 0
+        entries = _entries(tiles, t)
+        n = sum(reach(kb * block) for kb, _ in entries)
+        walk, i, sub, k0, n_sub, own = [], 0, 0, 0, 0, 0
         for _ in range(n):   # Cursor::next
             while sub >= n_sub:
-                k0 = idx[qb][i] * block
+                kb, own = entries[i]
                 i += 1
+                k0 = kb * block
                 n_sub, sub = reach(k0), 0
-            keys.append(k0 + kv_tile * sub)
+            walk.append((k0 + kv_tile * sub, own))
             sub += 1
-        walks[q0] = keys
+        walks[q0] = walk
     return walks
 
 
+def _list_dkv_walk(lists, s_q, s_kv, causal, rows, bq):
+    """A mirror of ``ListDkv`` (csrc/flash_bwd_sm90.cuh), the dK/dV kernel's
+    schedule: ``rows``-row kv tiles (128, a warpgroup's 64 rows each; 64 at
+    head_dim 256, both warpgroups on the one half) over the transposed
+    lists, ``bq``-row q tiles (64 at head_dim 64, else 32): for every grid
+    row (the kv tiles in ``kv_tiles[rows].order``), [(first query row, owner
+    bits)] of the q tiles it walks, in order."""
+    block, tiles = lists.block, lists.kv_tiles[rows]
+    walks = {}
+    for row in range(-(-s_kv // rows)):
+        t = int(tiles.order[row])
+        kv0 = rows * t
+        lim = kv0 - (s_kv - s_q)   # the first query row that sees the kv tile
+
+        def first(q):
+            if not causal:
+                return 0
+            need = lim - (bq - 1) - q
+            return 0 if need <= 0 else min(block // bq, -(-need // bq))
+
+        entries = _entries(tiles, t)
+        n = sum(block // bq - first(qb * block) for qb, _ in entries)
+        walk, i, sub, q_blk, own = [], 0, block // bq, 0, 0
+        for _ in range(n):   # Cursor::next
+            while sub >= block // bq:
+                qb, own = entries[i]
+                i += 1
+                q_blk = qb * block
+                sub = first(q_blk)
+            walk.append((q_blk + bq * sub, own))
+            sub += 1
+        walks[kv0] = walk
+    return walks
+
+
+def _seen(lists, rows_fwd, causal, s_q, s_kv):
+    """[s_q, s_kv] bool: the (query, key) elements the plain version's
+    ``_visible`` keeps, over the forward or the transposed lists."""
+    blk = lists.block
+    seen = np.zeros((s_q, s_kv), bool)
+    for a in range(lists.max_a if rows_fwd else lists.max_aq):
+        other, ok = _visible(lists, a, rows_fwd, causal, s_q, s_kv, "cpu")
+        ok = ok.expand(-1, blk, blk).numpy()   # [n, 1, 1] where nothing is masked
+        for j in range(ok.shape[0]):
+            qb, kb = (j, int(other[j])) if rows_fwd else (int(other[j]), j)
+            seen[qb * blk:(qb + 1) * blk, kb * blk:(kb + 1) * blk] |= ok[j]
+    return seen
+
+
+def _check_walk(walks, seen, tile_rows, step):
+    """``walks`` ({first row of a grid tile: [(first row of a walked tile,
+    owners)]}) against ``seen`` ([grid axis, walked axis]): every grid tile
+    once; each walk ascending, each tile once; for every 64-row half h of a
+    grid tile, the walked tiles it owns (bit h) in which its rows see some
+    element are exactly the ``step``-row tiles in which they do (so a tile a
+    half does not own is one it needs nothing of). Returns the walked tiles
+    and those some half needs."""
+    assert sorted(walks) == list(range(0, seen.shape[0], tile_rows))
+    walked = needed = 0
+    for r0, walk in walks.items():
+        keys = [k for k, _ in walk]
+        assert keys == sorted(set(keys)), r0
+        halves = range(r0, min(r0 + tile_rows, seen.shape[0]), 64)
+        need_any = set()
+        for h, h0 in enumerate(halves):
+            rows = seen[h0:h0 + 64]
+            need = [k for k in range(0, seen.shape[1], step) if rows[:, k:k + step].any()]
+            used = [k for k, own in walk if own >> h & 1 and rows[:, k:k + step].any()]
+            assert used == need, (r0, h)
+            need_any |= set(need)
+        assert all(0 < own < 1 << len(halves) for _, own in walk), r0
+        walked += len(keys)
+        needed += len(need_any)
+    return walked, needed
+
+
+# (pattern, block, causal, s_q, s_kv, pattern config) of each case: a
+# layout of 128-token blocks or more and its twins of 64-token blocks
+_FIXED_1024 = {"num_local_blocks": 4, "num_global_blocks": 1}
+_FIXED_1024_64 = {"num_local_blocks": 8, "num_global_blocks": 2}
+
+
 @pytest.mark.parametrize("case", [
-    ("fixed", 128, True, 1024, 1024, {"num_local_blocks": 4, "num_global_blocks": 1}, 128),
-    ("bigbird", 256, False, 2048, 2048, {}, 128),
-    ("fixed", 128, True, 768, 1024, {}, 128),
-    ("fixed", 128, True, 2048, 2048, {"num_local_blocks": 4, "num_global_blocks": 1}, 64),
+    (64, [("fixed", 128, True, 1024, 1024, _FIXED_1024),
+          ("fixed", 64, True, 1024, 1024, _FIXED_1024_64)]),
+    (128, [("bigbird", 256, False, 2048, 2048, {}), ("bigbird", 64, True, 1024, 1024, {}),
+           ("bigbird", 64, False, 1024, 1024, {})]),
+    (80, [("fixed", 128, True, 768, 1024, {}), ("fixed", 64, True, 832, 1024, {}),
+          ("variable", 64, True, 960, 960, {})]),
+    (256, [("fixed", 128, True, 2048, 2048, _FIXED_1024),
+           ("fixed", 64, True, 2048, 2048, _FIXED_1024_64),
+           ("bslongformer", 64, True, 576, 576, {})]),
 ], ids=["training-layout", "bigbird-256-noncausal", "causal-sq<skv", "d256-training-layout"])
 def test_list_fwd_walk_is_the_plain_versions_visible_tiles(case):
-    """The wgmma forward's tile walk over a layout's lists visits, for every
-    128-row q tile, exactly the kv tiles (128 rows; 64 at head_dim 256, two
-    a 128-token block) in which the plain version's ``_visible`` keeps some
-    (query, key) element, ascending, each once; every q tile of the grid
-    once (the grid in heavy-first order)."""
-    pattern, block, causal, s_q, s_kv, kw, kv_tile = case
-    lists = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kw), s_q, s_kv,
-                                    causal=causal).lists
-    walks = _list_fwd_walk(lists, s_q, s_kv, causal, kv_tile=kv_tile)
-    assert sorted(walks) == list(range(0, s_q, 128))
-    want = {q0: set() for q0 in walks}
-    for a in range(lists.max_a):
-        kb, ok = _visible(lists, a, True, causal, s_q, s_kv, "cpu")
-        ok = ok.expand(-1, block, block)   # [n, 1, 1] where nothing is masked
-        for qb in range(ok.shape[0]):
-            for r in range(block // 128):
-                for c in range(block // kv_tile):
-                    cols = slice(kv_tile * c, kv_tile * (c + 1))
-                    if ok[qb, 128 * r:128 * (r + 1), cols].any():
-                        want[qb * block + 128 * r].add(int(kb[qb]) * block + kv_tile * c)
-    for q0, keys in walks.items():
-        assert keys == sorted(want[q0]), q0
-    if pattern == "fixed" and s_q == s_kv == 1024:
-        assert sum(len(k) for k in walks.values()) == 24   # the kept blocks of phase 8's layout
-    if pattern == "fixed" and s_q == s_kv == 2048:
-        # phase 10's GPT-J layout keeps 64 blocks, each two 64-row kv tiles
-        # (a diagonal block's too: the q tile's last row sees both)
-        assert int(lists.fwd_cnt.sum()) == 64
-        assert sum(len(k) for k in walks.values()) == 2 * 64
+    """The wgmma kernels' tile walks over a layout's lists by tile visit
+    what the plain version's ``_visible`` keeps, at a head_dim's tiles: the
+    forward (128-row q tiles over 128-row kv tiles; 64 at blocks of 64 and
+    at head_dim 256) and dQ (64-row kv tiles; 32 at 256) for every q tile,
+    the dK/dV kernel (128-row kv tiles over 64-row q tiles at head_dim 64,
+    32 at 80-128; 64-row kv tiles over 32 at 256) for every kv tile: each
+    walked tile once, ascending, and each 64-row half of a grid tile uses
+    exactly the tiles in which it sees some element (``_check_walk``). At
+    blocks of 128 and more the two halves share a list; at 64 a union walks
+    tiles one half masks whole, counted below."""
+    d, layouts = case
+    for pattern, block, causal, s_q, s_kv, kw in layouts:
+        lists = SA.BlockSparseAttention(SA.PATTERNS[pattern](block=block, **kw), s_q, s_kv,
+                                        causal=causal).lists
+        seen = _seen(lists, True, causal, s_q, s_kv)
+        np.testing.assert_array_equal(seen, _seen(lists, False, causal, s_q, s_kv))
+        fwd_kv = 64 if d > 128 or block % 128 else 128
+        dq_kv, dkv_kv, dkv_q = _bwd_tiles(d)
+        fwd = _check_walk(_list_fwd_walk(lists, s_q, s_kv, causal, fwd_kv), seen, 128, fwd_kv)
+        _check_walk(_list_fwd_walk(lists, s_q, s_kv, causal, dq_kv), seen, 128, dq_kv)
+        dkv = _check_walk(_list_dkv_walk(lists, s_q, s_kv, causal, dkv_kv, dkv_q), seen.T,
+                          dkv_kv, dkv_q)
+        tiles = lists.q_tiles
+        if block >= 128:   # the halves share a block: nothing walked in vain
+            assert tiles.walked == tiles.needed
+            assert fwd[0] == fwd[1] and dkv[0] == dkv[1]
+        assert tiles.needed == int(lists.layout.sum()) * (block // 64)
+        assert lists.kv_tiles[dkv_kv].needed == tiles.needed
+        if (pattern, s_q, s_kv) == ("fixed", 1024, 1024):
+            # phase 8's layout keeps 24 blocks of 128, its twin 88 of 64:
+            # the same (query, key) pairs (test_torch_sparse_attention.py)
+            assert int(lists.layout.sum()) == {128: 24, 64: 88}[block]
+            # the forward walks 24 tiles of 128 x 128, or 48 of 128 x 64:
+            # each q tile's union holds its odd half's diagonal block too
+            assert fwd == {128: (24, 24), 64: (48, 48)}[block]
+            assert (tiles.walked, tiles.needed) == {128: (48, 48), 64: (96, 88)}[block]
+        if (pattern, s_q, s_kv) == ("fixed", 2048, 2048) and block == 128:
+            # phase 10's GPT-J layout keeps 64 blocks, each two 64-row kv tiles
+            # (a diagonal block's too: the q tile's last row sees both)
+            assert int(lists.fwd_cnt.sum()) == 64
+            assert fwd == (2 * 64, 2 * 64)
 
 
 def test_block_sparse_forward_takes_the_backwards_route():
     """The forward's route is ``block_sparse_route``'s, as the backward's: a
-    forced wgmma route at a block it cannot take (64) or in fp32 raises on
-    CPU tensors too; where it can, the CPU tensors still take the plain
-    version (with an empty layout row: o = 0, lse = -1e30), launching
-    nothing."""
+    forced wgmma route at a block it cannot take (32) or in fp32 raises on
+    CPU tensors too; where it can (blocks of 64 and 128), the CPU tensors
+    still take the plain version (with an empty layout row: o = 0, lse =
+    -1e30), launching nothing."""
     r = np.random.RandomState(0)
     q, k, v = (torch.tensor(r.randn(1, 256, 2, 64), dtype=torch.float32) for _ in range(3))
     with pytest.raises(ValueError, match="route"):
         block_sparse_attention_fwd(q, k, v, SparseLayout(np.tril(np.ones((2, 2), bool)), 128),
                                    _route="wgmma")
-    layout = np.tril(np.ones((4, 4), bool))
+    layout = np.tril(np.ones((8, 8), bool))
     with pytest.raises(ValueError, match="route"):
-        block_sparse_attention_fwd(q, k, v, SparseLayout(layout, 64), _route="wgmma")
+        block_sparse_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                   SparseLayout(layout, 32), _route="wgmma")
     with pytest.raises(ValueError, match="route"):
-        block_sparse_attention_fwd(q, k, v, SparseLayout(layout, 64), _route="tiled")
+        block_sparse_attention_fwd(q, k, v, SparseLayout(layout[:4, :4], 64), _route="tiled")
     before = dict(LAUNCH_COUNTS)
-    layout = np.tril(np.ones((2, 2), bool))
-    layout[1] = False   # q block 1 sees no key
-    lists = SparseLayout(layout, 128)
     args = [t.to(torch.bfloat16) for t in (q, k, v)]
-    got, lse = block_sparse_attention_fwd(*args, lists, causal=False, return_lse=True,
-                                          _route="wgmma")
-    want, want_lse = block_sparse_attention_fwd_reference(*args, lists, causal=False,
-                                                          return_lse=True)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
-    assert (got[:, 128:] == 0).all() and (lse[:, :, 128:] == -1e30).all()
+    for block in (128, 64):
+        layout = np.tril(np.ones((256 // block,) * 2, bool))
+        layout[-1] = False   # the last q block sees no key
+        lists = SparseLayout(layout, block)
+        got, lse = block_sparse_attention_fwd(*args, lists, causal=False, return_lse=True,
+                                              _route="wgmma")
+        want, want_lse = block_sparse_attention_fwd_reference(*args, lists, causal=False,
+                                                              return_lse=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+        assert (got[:, -block:] == 0).all() and (lse[:, :, -block:] == -1e30).all()
     assert dict(LAUNCH_COUNTS) == before
 
 
@@ -311,9 +467,9 @@ def _padded(d):
 def test_width_presets_take_the_wgmma_flash_kernels():
     """The registry's OPT-2.7B (head_dim 80), GPT-NeoX-20B (96) and GPT-J-6B
     (256) take the TMA + wgmma flash forward and backward in bf16 and fp16;
-    the block-sparse forward takes the wgmma route at these widths with
-    blocks 128 and 256 and the wmma route with blocks 16, 32 and 64; the
-    block-sparse backward keeps the wmma route at every block."""
+    the block-sparse forward and backward take the wgmma route at these
+    widths with blocks 64, 128 and 256 and the wmma route with blocks 16
+    and 32."""
     cfgs = _registry_configs()
     for key in (("opt", "2.7b"), ("gpt_neox", "20b"), ("gptj", "6b")):
         d = cfgs[key].head_dim
@@ -322,9 +478,9 @@ def test_width_presets_take_the_wgmma_flash_kernels():
             assert attention_route(dtype, d, "fwd") == "wgmma", key
             assert attention_route(dtype, d, "bwd") == "wgmma", key
             for block in (16, 32, 64, 128, 256):
-                want = "wgmma" if block >= 128 else "wmma"
+                want = "wgmma" if block >= 64 else "wmma"
                 assert block_sparse_route(dtype, d, block, "fwd") == want, (key, block)
-                assert block_sparse_route(dtype, d, block, "bwd") == "wmma", (key, block)
+                assert block_sparse_route(dtype, d, block, "bwd") == want, (key, block)
         assert attention_route(torch.float32, d, "fwd") == "wmma"
         assert attention_route(torch.float32, d, "bwd") == "wmma"
 

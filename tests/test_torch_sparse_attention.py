@@ -122,17 +122,23 @@ def test_plain_backward_matches_jax_grad(name):
     """Grads of sum(attn(q, k, v) ** 2) through the port's autograd Function
     (the plain dQ and dK/dV) against ``jax.grad`` through the JAX class in
     interpret mode: rtol/atol 5e-4, as the JAX test holds its kernel
-    against dense attention."""
-    jcfg, pcfg = _configs(name)
-    q, k, v = _qkv(seed=5)
-    ref_attn = JSA.BlockSparseAttention(jcfg, SEQ, causal=True, interpret=True)
-    ref = jax.grad(lambda q, k, v: jnp.sum(ref_attn(q, k, v) ** 2), argnums=(0, 1, 2))(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    attn = SA.BlockSparseAttention(pcfg, SEQ, causal=True)
-    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
-    (attn(qt, kt, vt) ** 2).sum().backward()
-    for r, t in zip(ref, (qt, kt, vt)):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=5e-4, atol=5e-4)
+    against dense attention; at the tests' 16-token blocks and at 64-token
+    blocks (the wgmma route's smallest, seq 256), the outputs too (2e-5)."""
+    for block, seq in ((BLK, SEQ), (64, 256)):
+        jcfg, pcfg = _configs(name, block)
+        q, k, v = _qkv(s=seq, seed=5)
+        ref_attn = JSA.BlockSparseAttention(jcfg, seq, causal=True, interpret=True)
+        ref = jax.grad(lambda q, k, v: jnp.sum(ref_attn(q, k, v) ** 2), argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        attn = SA.BlockSparseAttention(pcfg, seq, causal=True)
+        qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+        out = attn(qt, kt, vt)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   np.asarray(ref_attn(*map(jnp.asarray, (q, k, v)))),
+                                   rtol=2e-5, atol=2e-5)
+        (out ** 2).sum().backward()
+        for r, t in zip(ref, (qt, kt, vt)):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=5e-4, atol=5e-4)
 
 
 def test_dense_pattern_through_causal_lm_equals_xla_attention():

@@ -27,11 +27,13 @@ turns: full GPT-J-6B (28 layers, 16 heads of 256) ``generate()`` over
 ``chip_smoke.py`` phase 10's requests, cold and warm, full OPT-2.7B (32
 heads of 80) ``train_batch()`` at phase 10's batch and sequence, and
 GPT-J-6B at full width cut to phase 10's depth ``train_batch()`` with flash
-and with block-sparse attention (phase 8's pattern), each 2 warm-up and 8
-timed steps. The shapes and configs are this checkout's ``chip_smoke.py``
-constants (``WIDTH_PATH_*``, ``WIDTH_TRAIN_*``, ``GPTJ_TRAIN_*``,
-``SPARSE_ATTENTION``), loaded by path; the loops are this file's own, so a
-root whose ``chip_smoke.py`` has no phase 10 runs too. Each run builds the
+and with block-sparse attention (phase 8's pattern), and full GPT-2 medium
+at phase 8's batch and sequence ``train_batch()`` with phase 8's twin of
+64-token blocks, each 2 warm-up and 8 timed steps. The shapes and configs
+are this checkout's ``chip_smoke.py`` constants (``WIDTH_PATH_*``,
+``WIDTH_TRAIN_*``, ``GPTJ_TRAIN_*``, ``SPARSE_ATTENTION``,
+``SPARSE_ATTENTION_64``, ``TRAIN_*``), loaded by path; the loops are this
+file's own, so a root whose ``chip_smoke.py`` has no phase 10 runs too. Each run builds the
 flash, CE and block-sparse kernels of its root. Prints one JSON line per
 run, then a summary: each root's warm prefill ms per request, median step
 ms of each training step, their launches by route and peaks (means of two
@@ -183,8 +185,9 @@ def train_steps(torch, cs, cfg, n_batch, seq, config):
 def widths_measure(root):
     """One ``--widths`` run in ``root``: GPT-J-6B bf16 ``generate()`` (warm
     prefill ms per request from ``last_timing``), OPT-2.7B bf16
-    ``train_batch()`` and GPT-J-6B's two training steps (``train_steps``),
-    with the attention launches by route."""
+    ``train_batch()``, GPT-J-6B's two training steps and GPT-2 medium's step
+    at 64-token blocks (``train_steps``), with the attention launches by
+    route."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -194,7 +197,7 @@ def widths_measure(root):
         raise SystemExit("chip_ab: no CUDA device")
     cs = own_chip_smoke()
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import CausalLM, gptj_config, opt_config
+    from deepspeed_tpu_torch.models import CausalLM, gpt2_config, gptj_config, opt_config
     from deepspeed_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
     from deepspeed_tpu_torch.ops.op_builder import ALL_OPS
 
@@ -231,10 +234,13 @@ def widths_measure(root):
                            fused_ce_impl="pallas", **attention)
         gptj[name] = train_steps(torch, cs, jcfg, cs.GPTJ_TRAIN_BATCH, cs.GPTJ_TRAIN_SEQ,
                                  cs.GPTJ_TRAIN_CONFIG)
+    gcfg = gpt2_config("medium", vocab_size=cs.TRAIN_VOCAB, remat=False, fused_ce=True,
+                       fused_ce_impl="pallas", **cs.SPARSE_ATTENTION_64)
+    gpt2 = train_steps(torch, cs, gcfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, cs.TRAIN_CONFIG)
     return {"root": root, "card": torch.cuda.get_device_name(0), "gptj_prefill_ms": prefill,
             "gptj_generate_launches": generate_launches, "opt_step_ms": opt["step_ms"],
             "opt_step_ms_median": opt["step_ms_median"], "opt_train_launches": opt["launches"],
-            "opt_peak_gib": opt["peak_gib"], "gptj_train": gptj}
+            "opt_peak_gib": opt["peak_gib"], "gptj_train": gptj, "gpt2_sparse64_train": gpt2}
 
 
 def widths_ab(base, change, smi):
@@ -268,6 +274,13 @@ def widths_ab(base, change, smi):
                 "peak_gib": mean(label, lambda r, s=step: r["gptj_train"][s]["peak_gib"]),
                 "launches": next(r["gptj_train"][step]["launches"] for r in runs
                                  if r["label"] == label)} for step in steps},
+            "gpt2_sparse64_train": {
+                "step_ms_median": mean(
+                    label, lambda r: r["gpt2_sparse64_train"]["step_ms_median"]),
+                "step_ms_medians": [r["gpt2_sparse64_train"]["step_ms_median"] for r in runs
+                                    if r["label"] == label],
+                "launches": next(r["gpt2_sparse64_train"]["launches"] for r in runs
+                                 if r["label"] == label)},
             "opt_step_ms_median": mean(label, lambda r: r["opt_step_ms_median"]),
             "opt_step_ms_medians": [r["opt_step_ms_median"] for r in runs if r["label"] == label],
             "gptj_prefill_ms": {q: mean(label, lambda r, q=q: r["gptj_prefill_ms"][q])
@@ -282,6 +295,9 @@ def widths_ab(base, change, smi):
         "gptj_train_step_ms_median": {
             step: (summary["change"]["gptj_train"][step]["step_ms_median"]
                    - summary["base"]["gptj_train"][step]["step_ms_median"]) for step in steps},
+        "gpt2_sparse64_train_step_ms_median": (
+            summary["change"]["gpt2_sparse64_train"]["step_ms_median"]
+            - summary["base"]["gpt2_sparse64_train"]["step_ms_median"]),
         "gptj_prefill_ms": {q: summary["change"]["gptj_prefill_ms"][q]
                             - summary["base"]["gptj_prefill_ms"][q]
                             for q in summary["base"]["gptj_prefill_ms"]}}
